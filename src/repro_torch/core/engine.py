@@ -1,0 +1,346 @@
+"""The E2C discrete-event engine in PyTorch, batched over replicas.
+
+The counterpart of ``repro.core.engine`` for independent tasks on a
+static fleet.  The reference runs one ``lax.while_loop`` per replica under
+``vmap``; here one Python loop advances all R replicas together.  Each
+trip of the loop processes one event timestamp of every replica that is
+still running (its own timestamp), and every phase masks its updates with
+that replica's ``active`` flag, which is what ``vmap`` does to a batched
+``while_loop``.  Event order within a timestamp matches the reference:
+
+  1. completions  (``busy_until <= t``),
+  2. arrivals     (``arrival <= t`` -> batch queue, overflow -> cancelled),
+  3. deadline drops (queued -> MISSED_QUEUE, running -> MISSED_RUNNING),
+  4. scheduler drain (policy decisions until a no-op or the batch queue
+     is exhausted; the cancellation wrapper may cancel instead),
+  5. start tasks on idle machines (lowest mapping sequence first).
+
+Floats are computed with the reference's expressions in the reference's
+order (``time + dur``, ``avail + eet``); the energy charge ``energy +
+p_active * dur``, which XLA fuses into one multiply-add, goes through
+``reduce.fma``, and the one float sum of the loop, the queued work in
+each machine queue, through ``reduce.ordered_sum``, so final states are
+bitwise those of the JAX engine on the CPU (ROADMAP.md, queue C, names
+the inputs where the reference's own fusion makes that impossible).
+The machine picks, the Min-Min pair search, the start picks and the
+next-event minima always go through the wrappers of
+``kernels/sched_argmin.py``: the CUDA kernels on the card, their plain
+versions on the CPU (the reference with ``pallas=True``).
+
+Host reads: the drain runs in chunks of ``DRAIN_CHUNK`` trips and reads
+one pair of flags after each chunk (is any replica still draining, is
+any replica still live); the last read of an event also decides whether
+another event follows, so the event loop adds no read of its own and a
+run costs one read per event step plus one per extra chunk.  State
+tensors that the run creates are updated in place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import schedulers as P
+from repro_torch.core import state as S
+from repro_torch.core.eet import EETTable
+from repro_torch.core.reduce import fma, ordered_sum, signed_min
+from repro_torch.kernels import sched_argmin as K
+
+DRAIN_CHUNK = 2     # drain trips between host reads
+
+
+@dataclass(frozen=True)
+class SimParams:
+    """Static simulation parameters (the reference's subset this slice
+    runs)."""
+    lcap: int = 4                  # machine-queue size
+    qcap: int = 1 << 30            # batch-queue capacity
+    cancel_infeasible: bool = True
+    max_events: int | None = None
+
+
+@dataclass
+class RunStats:
+    """Loop counters of one ``run_sweep`` call, filled in by the run."""
+    events: int = 0         # event steps (loop trips over all replicas)
+    drain_trips: int = 0    # drain trips, including masked no-op trips
+    host_reads: int = 0     # device-to-host flag reads
+
+
+# --------------------------------------------------------------------------
+# Masked updates
+# --------------------------------------------------------------------------
+def _put(x: torch.Tensor, idx: torch.Tensor, val, on: torch.Tensor) -> None:
+    """In place: ``x[r, idx[r]] = val[r]`` where ``on[r]`` (one index per
+    replica; the reference's scatter with ``mode="drop"``)."""
+    i = torch.where(on, idx, 0).long()[:, None]
+    cur = x.gather(1, i)
+    if not isinstance(val, torch.Tensor):
+        val = torch.full_like(cur, val)
+    x.scatter_(1, i, torch.where(on[:, None], val.reshape(cur.shape).to(
+        x.dtype), cur))
+
+
+def _put_many(x: torch.Tensor, idx: torch.Tensor, val,
+              on: torch.Tensor) -> torch.Tensor:
+    """``x[r, idx[r, k]] = val[r, k]`` where ``on[r, k]``; the indices a
+    row writes must be distinct (each machine runs its own task).  Off
+    entries write to a spare column that is cut away."""
+    n = x.shape[1]
+    ext = torch.cat([x, x[:, :1]], 1)
+    i = torch.where(on, idx, n).long()
+    if not isinstance(val, torch.Tensor):
+        val = torch.full(i.shape, val, dtype=x.dtype, device=x.device)
+    ext.scatter_(1, i, val.to(x.dtype))
+    return ext[:, :n].contiguous()
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    return mask.sum(1, dtype=torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Event phases (each masked by the (R,) ``act`` flag)
+# --------------------------------------------------------------------------
+def _completions(st: S.SimState, p_active: torch.Tensor,
+                 act: torch.Tensor) -> None:
+    mach, tasks = st.machines, st.tasks
+    n = tasks.arrival.shape[1]
+    done_m = act[:, None] & (mach.running >= 0) & (
+        mach.busy_until <= st.time[:, None])
+    rid = mach.running.clamp(0, n - 1).long()
+    dur = torch.where(done_m, mach.busy_until - tasks.t_start.gather(1, rid),
+                      0.0)
+    tasks.status = _put_many(tasks.status, mach.running, S.COMPLETED, done_m)
+    tasks.t_end = _put_many(tasks.t_end, mach.running,
+                            torch.where(done_m, mach.busy_until, 0.0), done_m)
+    mach.energy = fma(p_active, dur, mach.energy)
+    mach.active_time = mach.active_time + dur
+    mach.running = torch.where(done_m, -1, mach.running)
+    st.n_live = st.n_live - _count(done_m)
+
+
+def _arrivals(st: S.SimState, qcap: int, act: torch.Tensor) -> None:
+    tasks = st.tasks
+    new = act[:, None] & (tasks.status == S.NOT_ARRIVED) & (
+        tasks.arrival <= st.time[:, None])
+    pos = torch.cumsum(new.to(torch.int32), 1, dtype=torch.int32)
+    admitted = new & (st.n_batch[:, None] + pos <= qcap)
+    overflow = new & ~admitted
+    status = torch.where(admitted, S.IN_BATCH, tasks.status)
+    tasks.status = torch.where(overflow, S.CANCELLED, status)
+    tasks.t_end = torch.where(overflow, tasks.arrival, tasks.t_end)
+    st.n_batch = st.n_batch + _count(admitted)
+    st.n_live = st.n_live - _count(overflow)
+
+
+def _deadline_drops(st: S.SimState, p_active: torch.Tensor,
+                    act: torch.Tensor) -> None:
+    tasks, mach = st.tasks, st.machines
+    n = tasks.arrival.shape[1]
+    n_m = mach.mtype.shape[1]
+    # queued tasks (batch queue or machine queue) past their deadline
+    waiting = (tasks.status == S.IN_BATCH) | (tasks.status == S.IN_MQ)
+    miss_q = act[:, None] & waiting & (tasks.deadline <= st.time[:, None])
+    from_mq = miss_q & (tasks.status == S.IN_MQ)
+    left = torch.zeros((st.mq_count.shape[0], n_m + 1), dtype=torch.int32,
+                       device=from_mq.device)
+    left.scatter_add_(1, torch.where(from_mq, tasks.machine, n_m).long(),
+                      torch.ones_like(tasks.machine))
+    st.mq_count = st.mq_count - left[:, :n_m]
+    st.n_batch = st.n_batch - _count(miss_q & (tasks.status == S.IN_BATCH))
+    status = torch.where(miss_q, S.MISSED_QUEUE, tasks.status)
+    t_end = torch.where(miss_q, tasks.deadline, tasks.t_end)
+
+    # running tasks past their deadline: drop, charge partial energy
+    run_id = mach.running.clamp(0, n - 1).long()
+    run_dl = tasks.deadline.gather(1, run_id)
+    miss_r = act[:, None] & (mach.running >= 0) & (
+        run_dl <= st.time[:, None])
+    dur = torch.where(miss_r, run_dl - tasks.t_start.gather(1, run_id), 0.0)
+    tasks.status = _put_many(status, mach.running, S.MISSED_RUNNING, miss_r)
+    tasks.t_end = _put_many(t_end, mach.running,
+                            torch.where(miss_r, run_dl, 0.0), miss_r)
+    mach.energy = fma(p_active, dur, mach.energy)
+    mach.active_time = mach.active_time + dur
+    mach.running = torch.where(miss_r, -1, mach.running)
+    st.n_live = st.n_live - _count(miss_q) - _count(miss_r)
+
+
+def _apply_decision(st: S.SimState, dec: P.Decision, on: torch.Tensor
+                    ) -> torch.Tensor:
+    """Apply each replica's decision where ``on``; returns the (R,)
+    mask of replicas that mapped a task."""
+    tasks = st.tasks
+    n_m = st.machines.mtype.shape[1]
+    acted = on & (dec.task >= 0)
+    do_map = acted & ~dec.cancel
+    do_cancel = acted & dec.cancel
+    _put(tasks.status, dec.task,
+         torch.where(dec.cancel, S.CANCELLED, S.IN_MQ), acted)
+    _put(tasks.machine, dec.task, dec.machine, do_map)
+    _put(tasks.seq, dec.task, st.seq_counter, do_map)
+    _put(tasks.t_end, dec.task, st.time, do_cancel)
+    st.rr_ptr = torch.where(do_map, (dec.machine + 1) % n_m, st.rr_ptr)
+    ids = torch.arange(n_m, device=dec.machine.device)
+    st.mq_count = st.mq_count + (
+        (ids == dec.machine[:, None]) & do_map[:, None]).to(torch.int32)
+    st.seq_counter = st.seq_counter + do_map.to(torch.int32)
+    st.n_batch = st.n_batch - acted.to(torch.int32)
+    st.n_live = st.n_live - do_cancel.to(torch.int32)
+    return do_map
+
+
+def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
+           params: SimParams, const: tuple, act: torch.Tensor,
+           max_events: int, stats: RunStats) -> bool:
+    """Invoke every replica's scheduler until it returns a no-op or its
+    batch queue (as counted at the start of the drain) is exhausted.
+
+    The machine-available vector is computed once per event and carried
+    through the trips with one exact add per mapped decision, as in the
+    reference.  Returns whether any replica is still live after this
+    event (read together with the drain's last termination flag)."""
+    eet_nm = const[0]
+    mach = st.machines
+    n_m = mach.mtype.shape[1]
+    bound = st.n_batch.clone()
+    draining = act & (bound > 0)
+    t = st.time[:, None]
+    base = torch.maximum(t, torch.where(mach.running >= 0, mach.busy_until,
+                                        t))
+    in_mq = S.queued_mask(st.tasks, n_m)
+    avail = base + ordered_sum(torch.where(in_mq, eet_nm, 0.0), 1)
+    del in_mq
+    ids = torch.arange(n_m, device=avail.device)
+    rows = torch.arange(avail.shape[0], device=avail.device)
+    iters = torch.zeros_like(bound)
+    while True:
+        for _ in range(DRAIN_CHUNK):
+            dec = P.dispatch(plan, st, tb, params.lcap,
+                             params.cancel_infeasible, const,
+                             avail=avail)
+            do_map = _apply_decision(st, dec, draining)
+            m_oh = (ids == dec.machine[:, None]) & do_map[:, None]
+            avail = torch.where(
+                m_oh, avail + eet_nm[rows, dec.task.clamp(min=0).long()],
+                avail)
+            iters = iters + draining.to(torch.int32)
+            draining = draining & (dec.task >= 0) & (iters < bound)
+            stats.drain_trips += 1
+        live = (st.n_live > 0) & (st.n_events + 1 < max_events)
+        still, more = torch.stack([draining.any(), live.any()]).tolist()
+        stats.host_reads += 1
+        if not still:
+            return bool(more)
+
+
+def _start_tasks(st: S.SimState, tb: S.StaticTables,
+                 act: torch.Tensor) -> None:
+    tasks, mach = st.tasks, st.machines
+    n = tasks.arrival.shape[1]
+    n_m = mach.mtype.shape[1]
+    # lowest mapping-seq task queued on each machine
+    pick, has = K.fused_start_pick(tasks.status, tasks.machine, tasks.seq,
+                                   n_m, in_mq=S.IN_MQ)
+    start = act[:, None] & (mach.running < 0) & has
+    dur = S.exec_time(tb, tasks, pick.clamp(0, n - 1).long(), mach.mtype,
+                      mach.speed)
+    t = st.time[:, None]
+    tasks.status = _put_many(tasks.status, pick, S.RUNNING, start)
+    tasks.t_start = _put_many(tasks.t_start, pick, t.expand_as(pick), start)
+    mach.running = torch.where(start, pick, mach.running)
+    mach.busy_until = torch.where(start, t + dur, mach.busy_until)
+    st.mq_count = st.mq_count - start.to(torch.int32)
+
+
+def _next_event_time(st: S.SimState) -> torch.Tensor:
+    tasks, mach = st.tasks, st.machines
+    t_arr, t_dl = K.fused_event_bounds(
+        tasks.status, tasks.arrival, tasks.deadline,
+        not_arrived=S.NOT_ARRIVED, live_lo=S.IN_BATCH, live_hi=S.RUNNING)
+    t_cmp = signed_min(torch.where(mach.running >= 0, mach.busy_until,
+                                   S.INF), 1)
+    return torch.minimum(torch.minimum(t_arr, t_cmp), t_dl)
+
+
+# --------------------------------------------------------------------------
+# Top-level engine
+# --------------------------------------------------------------------------
+def run_sweep(tasks: S.TaskTable, mtype: torch.Tensor,
+              tables: S.StaticTables, policy_ids: torch.Tensor,
+              params: SimParams = SimParams(),
+              stats: RunStats | None = None) -> S.SimState:
+    """Run R replicas to completion; returns the final (R, ...) state.
+
+    Every argument carries the leading replica axis and lies on the
+    device the run uses.  ``policy_ids`` (R,) picks each replica's
+    policy by the reference's ids (``schedulers.POLICY_IDS``).  Pass a
+    ``RunStats`` to read the loop's event, trip and host-read counts."""
+    stats = RunStats() if stats is None else stats
+    st = S.init_state(tasks, mtype)
+    r, n = st.tasks.arrival.shape
+    max_events = params.max_events or (4 * n + 16)
+    if r == 0 or n == 0 or max_events <= 0:
+        return st
+    plan = P.Plan.make(policy_ids.to(torch.int32), st, tables)
+    const = P.expected_tables(st, tables)
+    rows = torch.arange(r, device=mtype.device)[:, None]
+    p_active = tables.power[rows, st.machines.mtype.long(), 1] * \
+        st.machines.power_scale
+    act = torch.ones(r, dtype=torch.bool, device=mtype.device)
+    more = True
+    while more:
+        t = _next_event_time(st)
+        st.time = torch.where(act, t, st.time)
+        _completions(st, p_active, act)
+        _arrivals(st, params.qcap, act)
+        _deadline_drops(st, p_active, act)
+        more = _drain(st, tables, plan, params, const, act, max_events,
+                      stats)
+        _start_tasks(st, tables, act)
+        st.n_events = st.n_events + act.to(torch.int32)
+        act = (st.n_live > 0) & (st.n_events < max_events)
+        stats.events += 1
+    return st
+
+
+def make_tables(eet: EETTable | np.ndarray, power: np.ndarray,
+                n_tasks: int, *, noise: np.ndarray | None = None,
+                rank: np.ndarray | None = None,
+                device="cuda") -> S.StaticTables:
+    """One-replica (leading axis 1) static tables on ``device``; ``eet``
+    is an ``EETTable`` (or anything with an ``eet`` array) or an array."""
+    dev = resolve_device(device)
+    eet_arr = np.asarray(getattr(eet, "eet", eet))   # an EETTable or array
+    if noise is None:
+        noise = np.ones((n_tasks,), np.float32)
+    if rank is None:
+        rank = np.zeros((n_tasks,), np.float32)
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, np.float32)[None], device=dev)
+
+    return S.StaticTables(eet=put(eet_arr), power=put(power),
+                          noise=put(noise), rank=put(rank))
+
+
+def simulate(workload, eet: EETTable, power: np.ndarray,
+             machine_types, policy: str = "mct", *, lcap: int = 4,
+             qcap: int | None = None, cancel_infeasible: bool = True,
+             noise: np.ndarray | None = None,
+             device="cuda") -> S.SimState:
+    """One replica, named policy; returns a one-replica (leading axis 1)
+    final state."""
+    dev = resolve_device(device)
+    params = SimParams(lcap=lcap, qcap=qcap or (1 << 30),
+                       cancel_infeasible=cancel_infeasible)
+    tables = make_tables(eet, power, workload.n_tasks, noise=noise,
+                         device=dev)
+    mtype = torch.as_tensor(np.asarray(machine_types, np.int32)[None],
+                            device=dev)
+    pid = torch.tensor([P.POLICY_IDS[policy]], dtype=torch.int32,
+                       device=dev)
+    return run_sweep(workload.to_task_table(dev), mtype, tables, pid, params)

@@ -1,0 +1,157 @@
+"""Simulation outputs for one replica of a batch: the report row.
+
+The counterpart of ``repro.core.report`` for flat (static-fleet,
+independent-task) runs: ``SimReport``, ``metrics``, ``heterogeneity`` and
+``summarize``.  Host-side numpy, as in the reference; the float sums over
+machines use ``reduce.ordered_sum`` so the rows equal the reference's.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from repro_torch.core import energy as E
+from repro_torch.core import state as S
+from repro_torch.core.reduce import ordered_sum
+
+STATUS_NAMES = {
+    S.NOT_ARRIVED: "not_arrived",
+    S.IN_BATCH: "in_batch",
+    S.IN_MQ: "in_machine_queue",
+    S.RUNNING: "running",
+    S.COMPLETED: "completed",
+    S.CANCELLED: "cancelled",
+    S.MISSED_QUEUE: "missed_queue",
+    S.MISSED_RUNNING: "missed_running",
+    S.PREEMPTED: "preempted",
+}
+
+
+@dataclass
+class SimReport:
+    n_tasks: int
+    completed: int
+    cancelled: int
+    missed_queue: int
+    missed_running: int
+    makespan: float
+    total_energy: float
+    active_energy: float
+    idle_energy: float
+    mean_response: float       # completion - arrival over completed tasks
+    mean_wait: float           # start - arrival over started tasks
+    throughput: float          # completed / makespan
+    energy_per_task: float
+    machine_util: np.ndarray   # (M,) active_time / makespan
+    preempted: int = 0
+    requeues: int = 0
+    availability: float = 1.0
+
+    @property
+    def completion_rate(self) -> float:
+        return self.completed / max(self.n_tasks, 1)
+
+    @property
+    def miss_rate(self) -> float:
+        return (self.missed_queue + self.missed_running) / max(self.n_tasks, 1)
+
+    @property
+    def cancel_rate(self) -> float:
+        return self.cancelled / max(self.n_tasks, 1)
+
+    def row(self) -> dict:
+        return {
+            "n_tasks": self.n_tasks,
+            "completed": self.completed, "cancelled": self.cancelled,
+            "missed": self.missed_queue + self.missed_running,
+            "missed_queue": self.missed_queue,
+            "missed_running": self.missed_running,
+            "preempted": self.preempted,
+            "requeues": self.requeues,
+            "completion_rate": round(self.completion_rate, 4),
+            "availability": round(self.availability, 4),
+            "makespan": round(self.makespan, 4),
+            "energy_J": round(self.total_energy, 2),
+            "active_energy_J": round(self.active_energy, 2),
+            "idle_energy_J": round(self.idle_energy, 2),
+            "energy_per_task_J": round(self.energy_per_task, 3),
+            "mean_response_s": round(self.mean_response, 4),
+            "mean_wait_s": round(self.mean_wait, 4),
+            "throughput": round(self.throughput, 4),
+        }
+
+
+def metrics(st: S.SimState, tables: S.StaticTables,
+            replica: int = 0) -> SimReport:
+    """Host-side report of replica ``replica`` of a final state."""
+    one, tab = st.take(slice(replica, replica + 1)), \
+        tables.take(slice(replica, replica + 1))
+    status = one.tasks.status[0].cpu().numpy()
+    t_end = one.tasks.t_end[0].cpu().numpy()
+    t_start = one.tasks.t_start[0].cpu().numpy()
+    arrival = one.tasks.arrival[0].cpu().numpy()
+    n = status.shape[0]
+    completed = status == S.COMPLETED
+    started = t_start >= 0
+    span = float(E.makespan(one)[0])
+    active = float(ordered_sum(E.active_energy(one), 1)[0])
+    idle = float(ordered_sum(E.idle_energy(one, tab), 1)[0])
+    n_done = int(completed.sum())
+    util = one.machines.active_time[0].cpu().numpy() / max(span, 1e-9)
+    n_pre = int((status == S.PREEMPTED).sum())
+    return SimReport(
+        n_tasks=n,
+        completed=n_done,
+        cancelled=int((status == S.CANCELLED).sum()),
+        missed_queue=int((status == S.MISSED_QUEUE).sum()),
+        missed_running=int((status == S.MISSED_RUNNING).sum()),
+        preempted=n_pre,
+        requeues=int(one.n_preempts[0].sum()) - n_pre,
+        availability=1.0,
+        makespan=span,
+        total_energy=active + idle,
+        active_energy=active,
+        idle_energy=idle,
+        mean_response=float(np.mean((t_end - arrival)[completed])
+                            ) if n_done else 0.0,
+        mean_wait=float(np.mean((t_start - arrival)[started])
+                        ) if started.any() else 0.0,
+        throughput=n_done / max(span, 1e-9),
+        energy_per_task=(active + idle) / max(n_done, 1),
+        machine_util=util,
+    )
+
+
+def heterogeneity(eet: np.ndarray, mtype: np.ndarray,
+                  speed: np.ndarray | None = None) -> dict:
+    """HEET-style heterogeneity score of a fleet: the coefficient of
+    variation of per-machine capability times the normalized entropy of
+    the machine-type mix (0 for a homogeneous fleet)."""
+    eet = np.asarray(eet, np.float64)
+    mtype = np.asarray(mtype, np.int64)
+    cap = (1.0 / eet).mean(axis=0)[mtype]
+    if speed is not None:
+        cap = cap * np.asarray(speed, np.float64)
+    mu = float(cap.mean())
+    perf_cv = float(cap.std() / mu) if mu > 0 else 0.0
+    counts = np.unique(mtype, return_counts=True)[1]
+    if counts.size > 1:
+        p = counts / counts.sum()
+        type_entropy = float(-(p * np.log(p)).sum() / np.log(counts.size))
+    else:
+        type_entropy = 0.0
+    return {"het_perf_cv": round(perf_cv, 6),
+            "het_type_entropy": round(type_entropy, 6),
+            "heterogeneity": round(perf_cv * type_entropy, 6)}
+
+
+def summarize(st: S.SimState, tables: S.StaticTables,
+              replica: int = 0) -> dict:
+    """One flat dict for replica ``replica``: the ``SimReport`` row plus
+    the fleet heterogeneity score."""
+    row = metrics(st, tables, replica).row()
+    row.update(heterogeneity(tables.eet[replica].cpu().numpy(),
+                             st.machines.mtype[replica].cpu().numpy(),
+                             st.machines.speed[replica].cpu().numpy()))
+    return row

@@ -1,0 +1,170 @@
+"""Wrappers of the CUDA dispatch and event-loop kernels.
+
+Replaces the Pallas kernels of ``repro/kernels/sched_argmin.py``:
+``masked_argmin`` (:89), ``fused_minmin`` (:227), ``fused_start_pick``
+(:315) and ``fused_event_bounds`` (:388).  The kernels live in
+``csrc/sched_argmin.cu``; its header says what bounds them on the H100
+(bytes moved, and at the engine's small shapes launch latency) and how
+the sequential-grid carry of the Pallas versions became one CTA per
+replica with a (value, index) block reduction.
+
+Every wrapper takes a leading replica axis R and computes, per replica,
+what the Pallas function computes for one.  A tensor on the CPU goes to
+the plain PyTorch version in ``ref.py``; a CUDA tensor launches the
+kernel (building it on first use) or raises — there is no fallback.
+``launches`` counts kernel launches only, so a run can show that its
+main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import ref
+
+NAMES = ("masked_argmin", "fused_minmin", "fused_start_pick",
+         "fused_event_bounds")
+
+launches = dict.fromkeys(NAMES, 0)
+
+
+def reset_launches() -> None:
+    for name in NAMES:
+        launches[name] = 0
+
+
+def _count(name: str) -> None:
+    launches[name] += 1
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA inputs, False for CPU inputs; raises on a mix or on
+    another device type."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"kernel inputs must all be on one CPU or CUDA device, "
+                     f"got {sorted(str(t.device) for t in tensors)}")
+
+
+def _expect(x: torch.Tensor, dtype: torch.dtype, shape: tuple, what: str
+            ) -> torch.Tensor:
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected {dtype} {tuple(shape)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    return x.contiguous()
+
+
+def _stream() -> int:
+    """PyTorch's current CUDA stream, as the handle the launchers take."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def masked_argmin(values: torch.Tensor, mask: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R, N, M) values + bool mask -> (flat_idx (R,) i32, min (R,) f32).
+
+    Per replica: empty mask -> (-1, BIG); otherwise identical (index and
+    value) to ``argmin(where(mask, values, BIG))`` row-major."""
+    if not _on_cuda(values, mask):
+        return ref.masked_argmin_ref(values, mask)
+    r = values.shape[0]
+    length = values[0].numel()
+    if length >= 2**31:
+        raise ValueError("masked_argmin: N*M must fit in int32")
+    values = _expect(values.to(torch.float32), torch.float32, values.shape,
+                     "values")
+    mask = _expect(mask, torch.bool, values.shape, "mask")
+    idx = torch.empty(r, dtype=torch.int32, device=values.device)
+    vmin = torch.empty(r, dtype=torch.float32, device=values.device)
+    if r:
+        build.check(build.load().e2c_masked_argmin(
+            values.data_ptr(), mask.data_ptr(), r, length, idx.data_ptr(),
+            vmin.data_ptr(), _stream()), "masked_argmin")
+        _count("masked_argmin")
+    return idx, vmin
+
+
+def fused_minmin(avail: torch.Tensor, in_batch: torch.Tensor,
+                 room: torch.Tensor, type_id: torch.Tensor,
+                 eet_m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Min-Min pair -> (flat_idx (R,) i32, min (R,) f32).
+
+    ``avail`` (R, M), ``in_batch`` (R, N) bool, ``room`` (R, M) bool,
+    ``type_id`` (R, N) i32 (each in ``[0, T)``), ``eet_m`` (R, T, M) the
+    speed-scaled EET table.  The (N, M) completion matrix is never
+    stored.  No valid (in_batch, room) pair -> (-1, BIG)."""
+    if not _on_cuda(avail, in_batch, room, type_id, eet_m):
+        return ref.fused_minmin_ref(avail, in_batch, room, type_id, eet_m)
+    r, m = avail.shape
+    n = in_batch.shape[1]
+    t = eet_m.shape[1]
+    if n * m >= 2**31:
+        raise ValueError("fused_minmin: N*M must fit in int32")
+    avail = _expect(avail, torch.float32, (r, m), "avail")
+    in_batch = _expect(in_batch, torch.bool, (r, n), "in_batch")
+    room = _expect(room, torch.bool, (r, m), "room")
+    type_id = _expect(type_id, torch.int32, (r, n), "type_id")
+    eet_m = _expect(eet_m, torch.float32, (r, t, m), "eet_m")
+    idx = torch.empty(r, dtype=torch.int32, device=avail.device)
+    vmin = torch.empty(r, dtype=torch.float32, device=avail.device)
+    if r:
+        build.check(build.load().e2c_fused_minmin(
+            avail.data_ptr(), in_batch.data_ptr(), room.data_ptr(),
+            type_id.data_ptr(), eet_m.data_ptr(), r, n, m, t, idx.data_ptr(),
+            vmin.data_ptr(), _stream()), "fused_minmin")
+        _count("fused_minmin")
+    return idx, vmin
+
+
+def fused_start_pick(status: torch.Tensor, machine: torch.Tensor,
+                     seq: torch.Tensor, n_machines: int, *, in_mq: int = 2
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-machine FIFO head -> (pick (R, M) i32, has (R, M) bool):
+    the lowest-``seq`` task queued on each machine, lowest id on ties."""
+    if not _on_cuda(status, machine, seq):
+        return ref.fused_start_pick_ref(status, machine, seq, n_machines,
+                                        in_mq=in_mq)
+    r, n = status.shape
+    status = _expect(status, torch.int32, (r, n), "status")
+    machine = _expect(machine, torch.int32, (r, n), "machine")
+    seq = _expect(seq, torch.int32, (r, n), "seq")
+    pick = torch.empty((r, n_machines), dtype=torch.int32,
+                       device=status.device)
+    has = torch.empty((r, n_machines), dtype=torch.bool,
+                      device=status.device)
+    if r and n_machines:
+        build.check(build.load().e2c_fused_start_pick(
+            status.data_ptr(), machine.data_ptr(), seq.data_ptr(), r, n,
+            n_machines, in_mq, pick.data_ptr(), has.data_ptr(), _stream()),
+            "fused_start_pick")
+        _count("fused_start_pick")
+    return pick, has
+
+
+def fused_event_bounds(status: torch.Tensor, arrival: torch.Tensor,
+                       deadline: torch.Tensor, *, not_arrived: int = 0,
+                       live_lo: int = 1, live_hi: int = 3
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-event candidates -> (t_arr (R,) f32, t_dl (R,) f32): the
+    minimum arrival over ``not_arrived`` tasks and the minimum deadline
+    over statuses ``live_lo..live_hi``; +inf when empty."""
+    kw = {"not_arrived": not_arrived, "live_lo": live_lo,
+          "live_hi": live_hi}
+    if not _on_cuda(status, arrival, deadline):
+        return ref.fused_event_bounds_ref(status, arrival, deadline, **kw)
+    r, n = status.shape
+    status = _expect(status, torch.int32, (r, n), "status")
+    arrival = _expect(arrival, torch.float32, (r, n), "arrival")
+    deadline = _expect(deadline, torch.float32, (r, n), "deadline")
+    t_arr = torch.empty(r, dtype=torch.float32, device=status.device)
+    t_dl = torch.empty(r, dtype=torch.float32, device=status.device)
+    if r:
+        build.check(build.load().e2c_fused_event_bounds(
+            status.data_ptr(), arrival.data_ptr(), deadline.data_ptr(), r, n,
+            not_arrived, live_lo, live_hi, t_arr.data_ptr(), t_dl.data_ptr(),
+            _stream()), "fused_event_bounds")
+        _count("fused_event_bounds")
+    return t_arr, t_dl

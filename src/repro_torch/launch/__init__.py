@@ -1,0 +1,1 @@
+"""Experiment layer of the PyTorch port (counterpart of ``repro.launch``)."""
