@@ -2,24 +2,31 @@
 
     python3 chip_smoke.py            # the full check, one card
 
+    python3 chip_smoke.py --replicas 512 --flat-replicas 512   # short
+
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
   2. build: nvcc builds the CUDA kernels from ``src/repro_torch/kernels``;
   3. kernels: each kernel against its plain PyTorch version on the card,
      bitwise, on random and edge-case inputs;
-  4. main path: ``run_experiment`` over 4096 replicas x 1024 tasks x 32
-     machines and the nine ported policies; every kernel must have
-     launched, every task must end terminal, and kernel inputs captured
-     from the run are re-checked against the plain versions;
-  5. card vs CPU: a 64 x 128 x 8 sweep on the card and on the CPU must
-     give bitwise-equal final states and summaries;
+  4. main paths, each driven through ``run_experiment`` with the launch
+     counts set to 0 just before it and read just after, every kernel
+     launched, every task terminal, and kernel inputs captured from the
+     run re-checked against the plain versions:
+       flat      4096 replicas x 1024 tasks x 32 machines, ten policies;
+       scenario  the same width with a ``ScenarioAxis`` (fail rates 0,
+                 0.05, 0.1 x DVFS nominal, powersave, turbo, half the
+                 replicas on spot machines), ten policies;
+  5. card vs CPU: a 64 x 128 x 8 flat sweep and scenario sweep on the
+     card and on the CPU must give bitwise-equal final states and
+     summaries;
   6. timings: each kernel and its plain version on the inputs of the
      captured main-path call with the most work, rotated over copies
      larger than the L2 cache: device time (profiler) and stream time
      (CUDA events), beside the least time the card could take for that
      call's data (see ``bound``).
-Between 4 and 5 a profiled window of the main path's first 32 event
-steps gives the device's busy and idle share.
+After 4 a profiled window of each path's first 32 event steps gives the
+device's busy and idle share.
 The last two lines are the kernels JSON line and the result line.
 """
 from __future__ import annotations
@@ -38,7 +45,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 POLICIES = ("fcfs", "rr", "met", "mct", "ee_met", "ee_mct", "minmin",
-            "edf_mct", "heft")
+            "maxmin", "edf_mct", "heft")
+SCENARIO = dict(fail_rates=(0.0, 0.05, 0.1),
+                dvfs_states=("nominal", "powersave", "turbo"),
+                spot_frac=0.5)
+PATHS = ("flat", "scenario")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 SECTOR = 32                   # bytes the memory system moves at least
@@ -46,6 +57,7 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sched_argmin.cu"
 REPLACES = {
     "masked_argmin": "src/repro/kernels/sched_argmin.py:89",
     "fused_minmin": "src/repro/kernels/sched_argmin.py:227",
+    "fused_maxmin": "src/repro/kernels/sched_argmin.py:427",
     "fused_start_pick": "src/repro/kernels/sched_argmin.py:315",
     "fused_event_bounds": "src/repro/kernels/sched_argmin.py:388",
 }
@@ -146,6 +158,27 @@ def kernel_cases(dev):
     cases.append(("fused_minmin", "-0.0/+0.0",
                   (torch.full((r, m), -0.0, device=dev), base[1], base[2],
                    base[3], torch.zeros(r, t, m, device=dev)), {}))
+    # fused_maxmin: the Min-Min cases, and those only its two-level
+    # reduction reaches
+    for name, label, args, kw in [c for c in cases
+                                  if c[0] == "fused_minmin"]:
+        cases.append(("fused_maxmin", label, args, kw))
+    signed = torch.zeros(r, t, m, device=dev)
+    signed[..., ::2] = -0.0
+    cases.append(("fused_maxmin", "-0.0 row minima",
+                  (torch.full((r, m), -0.0, device=dev), base[1],
+                   torch.ones_like(base[2]), base[3], signed), {}))
+    one_b, one_r = torch.zeros_like(base[1]), torch.zeros_like(base[2])
+    one_b[:, 5], one_r[:, 2] = True, True
+    cases.append(("fused_maxmin", "one valid pair",
+                  (base[0], one_b, one_r, base[3], base[4]), {}))
+    mixed_b, mixed_r = base[1].clone(), base[2].clone()
+    mixed_b[0], mixed_r[1], mixed_r[2] = False, False, True
+    cases.append(("fused_maxmin", "mixed empty and full replicas",
+                  (base[0], mixed_b, mixed_r, base[3], base[4]), {}))
+    cases.append(("fused_maxmin", "scores below -BIG",
+                  (torch.full((r, m), float("-inf"), device=dev), base[1],
+                   base[2], base[3], base[4]), {}))
     # fused_start_pick
     for r, n, m in ((4096, 1024, 32), (5, 1000, 7), (3, 1, 1)):
         cases.append(("fused_start_pick", f"random {r}x{n}x{m}",
@@ -203,7 +236,8 @@ def fields(st):
             "machine": t.machine, "seq": t.seq, "t_start": t.t_start,
             "t_end": t.t_end, "busy_until": m.busy_until,
             "active_time": m.active_time, "energy": m.energy,
-            "mq_count": st.mq_count, "n_live": st.n_live}
+            "mq_count": st.mq_count, "n_live": st.n_live,
+            "n_preempts": st.n_preempts, "n_batch": st.n_batch}
 
 
 @contextlib.contextmanager
@@ -235,14 +269,26 @@ def capturing(K, at):
             setattr(K, name, fn)
 
 
-def run_main(X, E, K, S, dev, n_rep, n_tasks, n_mach):
-    spec = X.ExperimentSpec(n_rep, X.FleetAxis(n_mach),
-                            X.WorkloadAxis(n_tasks),
-                            policy=X.PolicyAxis(POLICIES), seed=0)
+def make_spec(X, E, path, n_rep, n_tasks, n_mach, seed=0, max_events=None):
+    """The spec of a main path: ``flat`` or ``scenario``."""
+    scenario = X.ScenarioAxis(**SCENARIO) if path == "scenario" else None
+    return X.ExperimentSpec(n_rep, X.FleetAxis(n_mach),
+                            X.WorkloadAxis(n_tasks), scenario=scenario,
+                            policy=X.PolicyAxis(POLICIES),
+                            sim=E.SimParams(max_events=max_events),
+                            seed=seed)
+
+
+def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
+    """Drive one main path through ``run_experiment``, the launch counts
+    set to 0 just before and read just after; returns the result, the
+    launches and the inputs captured from the run."""
+    phase = f"4 {path}"
+    spec = make_spec(X, E, path, n_rep, n_tasks, n_mach)
     t0 = time.perf_counter()
     reps = X.normalize(spec, device=dev)
     torch.cuda.synchronize()
-    log("4 main", f"normalize {n_rep} replicas x {n_tasks} tasks x "
+    log(phase, f"normalize {n_rep} replicas x {n_tasks} tasks x "
         f"{n_mach} machines on the host: {time.perf_counter() - t0:.2f} s")
     stats = E.RunStats()
     torch.cuda.reset_peak_memory_stats()
@@ -254,57 +300,67 @@ def run_main(X, E, K, S, dev, n_rep, n_tasks, n_mach):
         wall = time.perf_counter() - t0
         launches = dict(K.launches)
     for row in res.by_policy(("completion_rate", "missed", "cancelled",
+                              "preempted", "requeues", "availability",
                               "energy", "makespan", "mean_response")):
-        log("4 main", json.dumps(row))
+        log(phase, json.dumps(row))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log("4 main", f"execute {wall:.3f} s (synchronised); event steps "
+    log(phase, f"execute {wall:.3f} s (synchronised); event steps "
         f"{stats.events}, drain trips {stats.drain_trips}, host reads "
-        f"{stats.host_reads}; peak device memory {peak:.2f} GiB")
-    log("4 main", f"kernel launches {json.dumps(launches)}")
+        f"{stats.host_reads}; peak device memory {peak:.2f} GiB; "
+        f"{gpu_line()}")
+    if path == "scenario":
+        log(phase, f"preempted {int(res.metrics['preempted'].sum())} tasks,"
+            f" requeued {int(res.metrics['requeues'].sum())} evictions; "
+            f"mean availability "
+            f"{float(res.metrics['availability'].mean()):.4f}")
+    log(phase, f"kernel launches {json.dumps(launches)}")
     for name in K.NAMES:
         if launches[name] <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+            raise AssertionError(f"{name} never launched on the {path} path")
     st = res.state
     status = st.tasks.status
     if not bool((status >= S.COMPLETED).all()):
-        raise AssertionError("live tasks left at the end of the main path")
+        raise AssertionError(f"live tasks left at the end of the {path} "
+                             "path")
     for key, col in res.metrics.items():
         if col.shape != (n_rep,) or not bool(torch.isfinite(
                 col.float()).all()):
             raise AssertionError(f"summary column {key} is not finite "
                                  f"(R,): {tuple(col.shape)}")
-    rate = res.metrics["completion_rate"]
-    if not bool(((rate >= 0) & (rate <= 1)).all()):
-        raise AssertionError("completion_rate outside [0, 1]")
-    log("4 main", f"all {n_rep * n_tasks} tasks terminal; summaries finite")
+    for key in ("completion_rate", "availability"):
+        col = res.metrics[key]
+        if not bool(((col >= 0) & (col <= 1)).all()):
+            raise AssertionError(f"{key} outside [0, 1]")
+    if path == "scenario" and not int(st.n_preempts.sum()):
+        raise AssertionError("the scenario path evicted no task")
+    log(phase, f"all {n_rep * n_tasks} tasks terminal; summaries finite")
     return res, launches, captured
 
 
-def recheck_captured(K, KREF, captured) -> None:
+def recheck_captured(K, KREF, captured, path) -> None:
     for name in K.NAMES:
         for call, args, kw in captured[name]:
             got = getattr(K, name)(*args, **kw)
             want = getattr(KREF, name + "_ref")(*args, **kw)
-            compare(f"{name} captured call {call}", got, want)
-            log("3 kernels", f"{name} captured at main-path call {call}: "
+            compare(f"{name} {path} call {call}", got, want)
+            log("3 kernels", f"{name} captured at {path}-path call {call}: "
                 "bitwise equal")
 
 
-def card_vs_cpu(X, dev) -> None:
-    spec = X.ExperimentSpec(64, X.FleetAxis(8), X.WorkloadAxis(128),
-                            policy=X.PolicyAxis(POLICIES), seed=1)
+def card_vs_cpu(X, E, dev, path) -> None:
+    spec = make_spec(X, E, path, 64, 128, 8, seed=1)
     on_card = X.run_experiment(spec, device=dev)
     on_cpu = X.run_experiment(spec, device="cpu")
     got, want = fields(on_card.state), fields(on_cpu.state)
     for key in want:
         if not torch.equal(bits(got[key].cpu()), bits(want[key])):
-            raise AssertionError(f"card != CPU in {key}")
+            raise AssertionError(f"{path}: card != CPU in {key}")
     for key in on_cpu.metrics:
         if not torch.equal(bits(on_card.metrics[key].cpu()),
                            bits(on_cpu.metrics[key])):
-            raise AssertionError(f"card != CPU in summary {key}")
-    log("5 card=cpu", "64x128x8 sweep: every state field and summary "
-        "column bitwise equal to the CPU run")
+            raise AssertionError(f"{path}: card != CPU in summary {key}")
+    log("5 card=cpu", f"64x128x8 {path} sweep: every state field and "
+        "summary column bitwise equal to the CPU run")
 
 
 # ---------------------------------------------------------------------------
@@ -399,7 +455,8 @@ def bound(name: str, args, kw) -> tuple[float, str, int, int]:
     its operations over the float32 rate.  Masks and statuses are read
     whole; an input the mask gates counts only the 32-byte sectors that
     hold a selected element; each output is written once.  Operations:
-    one compare per selected cell (Min-Min adds one add per pair).
+    one compare per selected cell (Min-Min and Max-Min add one add per
+    pair, Max-Min one compare per waiting task).
     Returns (ms, "bytes" or "operations", bytes, operations)."""
     args = [a.contiguous() if isinstance(a, torch.Tensor) else a
             for a in args]
@@ -408,7 +465,7 @@ def bound(name: str, args, kw) -> tuple[float, str, int, int]:
         r = values.shape[0]
         moved = nbytes(mask) + sector_bytes(values, mask) + r * 8
         ops = int(mask.sum())
-    elif name == "fused_minmin":
+    elif name in ("fused_minmin", "fused_maxmin"):
         avail, in_batch, room, type_id, eet_m = args
         r, t = eet_m.shape[:2]
         live = in_batch.any(1) & room.any(1)           # replicas with pairs
@@ -419,8 +476,13 @@ def bound(name: str, args, kw) -> tuple[float, str, int, int]:
         moved = (nbytes(in_batch, room) + sector_bytes(avail, cols)
                  + sector_bytes(type_id, tasks)
                  + sector_bytes(eet_m, (used > 0)[:, :, None]
-                                & cols[:, None, :]) + r * 8)
+                                & cols[:, None, :])
+                 + r * (8 if name == "fused_minmin" else 12))
+        # an add and a compare per valid pair (Max-Min: and one compare
+        # per waiting task for the argmax)
         ops = 2 * int((tasks.sum(1) * cols.sum(1)).sum())
+        if name == "fused_maxmin":
+            ops += int(tasks.sum())
     elif name == "fused_start_pick":
         status, machine, seq, n_machines = args
         queued = status == kw["in_mq"]
@@ -443,9 +505,12 @@ def bound(name: str, args, kw) -> tuple[float, str, int, int]:
 
 
 def timings(K, KREF, launches, captured, errs) -> list:
+    """One kernels-JSON row per kernel; ``launches`` and ``captured``
+    map each main path to its counts and captured inputs."""
     rows = []
     for name in K.NAMES:
-        caps = captured[name]
+        caps = [(f"{path} {call}", args, kw) for path in PATHS
+                for call, args, kw in captured[path][name]]
         if not caps:
             raise AssertionError(f"no captured main-path input for {name}")
         # the captured call with the most work: the bound and the times
@@ -475,7 +540,9 @@ def timings(K, KREF, launches, captured, errs) -> list:
             f"operations); {gpu_line()}")
         rows.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                      "replaces": REPLACES[name],
-                     "launches": launches[name], "max_abs_err": errs[name],
+                     "launches": sum(launches[p][name] for p in PATHS),
+                     **{f"launches_{p}": launches[p][name] for p in PATHS},
+                     "max_abs_err": errs[name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None,
                      "stream_ms": stream_ms,
@@ -483,15 +550,13 @@ def timings(K, KREF, launches, captured, errs) -> list:
     return rows
 
 
-def profile_window(X, E, K, dev, n_rep, n_tasks, n_mach, steps=32):
-    """The main path's first ``steps`` event steps at full width, under
+def profile_window(X, E, K, dev, path, n_rep, n_tasks, n_mach, steps=32):
+    """A main path's first ``steps`` event steps at full width, under
     the profiler: wall time, device busy/idle share, top device kernels,
     and the port's kernels' device time per call in that window."""
     from torch.profiler import ProfilerActivity, profile
-    spec = X.ExperimentSpec(n_rep, X.FleetAxis(n_mach),
-                            X.WorkloadAxis(n_tasks),
-                            policy=X.PolicyAxis(POLICIES),
-                            sim=E.SimParams(max_events=steps), seed=0)
+    phase = f"4 {path} profile"
+    spec = make_spec(X, E, path, n_rep, n_tasks, n_mach, max_events=steps)
     reps = X.normalize(spec, device=dev)
     X.run_experiment(spec, device=dev, replicas=reps)      # warm-up
     torch.cuda.synchronize()
@@ -505,7 +570,7 @@ def profile_window(X, E, K, dev, n_rep, n_tasks, n_mach, steps=32):
     K.launches.update(saved)
     spans = device_activity(prof)
     busy = busy_us(spans) / 1e6
-    log("4 profile", f"{stats.events} event steps, {stats.drain_trips} drain "
+    log(phase, f"{stats.events} event steps, {stats.drain_trips} drain "
         f"trips, {stats.host_reads} host reads: wall {wall:.3f} s, device "
         f"busy {busy:.3f} s ({100 * busy / wall:.1f}%, idle "
         f"{100 * (1 - busy / wall):.1f}%), {len(spans)} device activities "
@@ -517,22 +582,26 @@ def profile_window(X, E, K, dev, n_rep, n_tasks, n_mach, steps=32):
         by_name[name] = (tot + e - s, cnt + 1)
     for name, (tot, cnt) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:8]:
-        log("4 profile", f"{tot / 1e3:10.2f} ms {cnt:7d} x  {name[:90]}")
+        log(phase, f"{tot / 1e3:10.2f} ms {cnt:7d} x  {name[:90]}")
     for kname in K.NAMES:
         hits = [(t, c) for n, (t, c) in by_name.items()
                 if kname + "_kernel" in n]
         if hits:
             t, c = hits[0]
-            log("4 profile", f"in the main path: {kname}_kernel {c} calls, "
+            log(phase, f"in the main path: {kname}_kernel {c} calls, "
                 f"{t / c / 1e3:.5f} ms device time each")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--replicas", type=int, default=4096)
+    ap.add_argument("--replicas", type=int, default=4096,
+                    help="replicas of the scenario path")
+    ap.add_argument("--flat-replicas", type=int, default=4096,
+                    help="replicas of the flat path")
     ap.add_argument("--tasks", type=int, default=1024)
     ap.add_argument("--machines", type=int, default=32)
     a = ap.parse_args()
+    width = {"flat": a.flat_replicas, "scenario": a.replicas}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
@@ -560,11 +629,16 @@ def main() -> int:
             print("    " + line.strip())
 
     errs = check_kernels(K, KREF, dev)
-    res, launches, captured = run_main(X, E, K, S, dev, a.replicas, a.tasks,
-                                       a.machines)
-    recheck_captured(K, KREF, captured)
-    profile_window(X, E, K, dev, a.replicas, a.tasks, a.machines)
-    card_vs_cpu(X, dev)
+    launches, captured = {}, {}
+    for path in PATHS:
+        res, launches[path], captured[path] = run_main(
+            X, E, K, S, dev, path, width[path], a.tasks, a.machines)
+        del res
+        recheck_captured(K, KREF, captured[path], path)
+    for path in PATHS:
+        profile_window(X, E, K, dev, path, width[path], a.tasks, a.machines)
+    for path in PATHS:
+        card_vs_cpu(X, E, dev, path)
     rows = timings(K, KREF, launches, captured, errs)
     log("done", f"{time.perf_counter() - t_all:.1f} s")
     print(gpu_line(), flush=True)

@@ -1,23 +1,34 @@
 """The E2C discrete-event engine in PyTorch, batched over replicas.
 
 The counterpart of ``repro.core.engine`` for independent tasks on a
-static fleet.  The reference runs one ``lax.while_loop`` per replica under
-``vmap``; here one Python loop advances all R replicas together.  Each
-trip of the loop processes one event timestamp of every replica that is
-still running (its own timestamp), and every phase masks its updates with
-that replica's ``active`` flag, which is what ``vmap`` does to a batched
-``while_loop``.  Event order within a timestamp matches the reference:
+static or dynamic fleet.  The reference runs one ``lax.while_loop`` per
+replica under ``vmap``; here one Python loop advances all R replicas
+together.  Each trip of the loop processes one event timestamp of every
+replica that is still running (its own timestamp), and every phase masks
+its updates with that replica's ``active`` flag, which is what ``vmap``
+does to a batched ``while_loop``.  Event order within a timestamp
+matches the reference:
 
   1. completions  (``busy_until <= t``),
-  2. arrivals     (``arrival <= t`` -> batch queue, overflow -> cancelled),
-  3. deadline drops (queued -> MISSED_QUEUE, running -> MISSED_RUNNING),
-  4. scheduler drain (policy decisions until a no-op or the batch queue
-     is exhausted; the cancellation wrapper may cancel instead),
-  5. start tasks on idle machines (lowest mapping sequence first).
+  2. availability (dynamic fleets only: a machine inside a down interval
+     preempts its running task and flushes its queue, killing or
+     requeueing the evicted tasks; partial energy is charged),
+  3. arrivals     (``arrival <= t`` -> batch queue, overflow -> cancelled),
+  4. deadline drops (queued -> MISSED_QUEUE, running -> MISSED_RUNNING),
+  5. scheduler drain (policy decisions until a no-op or the batch queue
+     is exhausted; down machines have no room; the cancellation wrapper
+     may cancel instead),
+  6. start tasks on idle machines that are up (lowest mapping sequence
+     first).
+
+A ``MachineDynamics`` adds the availability phase, the machines' DVFS
+multipliers (``speed`` divides the expected and actual execution times,
+``power_scale`` multiplies power) and the down-interval transitions as
+event candidates; without one the static-fleet path runs unchanged.
 
 Floats are computed with the reference's expressions in the reference's
-order (``time + dur``, ``avail + eet``); the energy charge ``energy +
-p_active * dur``, which XLA fuses into one multiply-add, goes through
+order (``time + dur``, ``avail + eet``); the energy charges ``energy +
+p_active * dur``, which XLA fuses into one multiply-add, go through
 ``reduce.fma``, and the one float sum of the loop, the queued work in
 each machine queue, through ``reduce.ordered_sum``, so final states are
 bitwise those of the JAX engine on the CPU (ROADMAP.md, queue C, names
@@ -122,6 +133,55 @@ def _completions(st: S.SimState, p_active: torch.Tensor,
     st.n_live = st.n_live - _count(done_m)
 
 
+def _availability(st: S.SimState, dyn: S.MachineDynamics,
+                  p_active: torch.Tensor, act: torch.Tensor) -> None:
+    """Evict the work of machines that are down at the replica's time:
+    the running task is charged its partial slice and, per ``dyn.kill``,
+    ends PREEMPTED or rejoins the batch queue to restart from scratch;
+    the machine queue is flushed the same way."""
+    tasks, mach = st.tasks, st.machines
+    n = tasks.arrival.shape[1]
+    n_m = mach.mtype.shape[1]
+    t = st.time[:, None]
+    down = act[:, None] & ~S.machine_up(dyn, st.time)          # (R, M)
+
+    # running tasks on down machines: charge the partial slice
+    running0 = mach.running
+    hit = down & (running0 >= 0)
+    rid = running0.clamp(0, n - 1).long()
+    dur = torch.where(hit, t - tasks.t_start.gather(1, rid), 0.0)
+    mach.energy = fma(p_active, dur, mach.energy)
+    mach.active_time = mach.active_time + dur
+    mach.running = torch.where(hit, -1, running0)
+    kill_hit = hit & dyn.kill
+    req_hit = hit & ~dyn.kill
+    status = _put_many(tasks.status, running0,
+                       torch.where(dyn.kill, S.PREEMPTED, S.IN_BATCH), hit)
+    t_end = _put_many(tasks.t_end, running0, t.expand_as(running0),
+                      kill_hit)
+    tasks.t_start = _put_many(tasks.t_start, running0, -1.0, req_hit)
+    machine = _put_many(tasks.machine, running0, -1, req_hit)
+    seq = _put_many(tasks.seq, running0, S.INT_MAX, req_hit)
+    n_pre = _put_many(st.n_preempts, running0,
+                      st.n_preempts.gather(1, rid) + 1, hit)
+
+    # queued tasks on down machines: flush the machine queue
+    m_of = machine.clamp(0, n_m - 1).long()
+    in_down_q = (status == S.IN_MQ) & (machine >= 0) & down.gather(1, m_of)
+    kill_of = dyn.kill.gather(1, m_of)
+    kq = in_down_q & kill_of
+    rq = in_down_q & ~kill_of
+    tasks.status = torch.where(kq, S.PREEMPTED,
+                               torch.where(rq, S.IN_BATCH, status))
+    tasks.t_end = torch.where(kq, t, t_end)
+    tasks.machine = torch.where(rq, -1, machine)
+    tasks.seq = torch.where(rq, S.INT_MAX, seq)
+    st.n_preempts = n_pre + in_down_q.to(torch.int32)
+    st.mq_count = torch.where(down, 0, st.mq_count)
+    st.n_live = st.n_live - _count(kill_hit) - _count(kq)
+    st.n_batch = st.n_batch + _count(req_hit) + _count(rq)
+
+
 def _arrivals(st: S.SimState, qcap: int, act: torch.Tensor) -> None:
     tasks = st.tasks
     new = act[:, None] & (tasks.status == S.NOT_ARRIVED) & (
@@ -195,7 +255,8 @@ def _apply_decision(st: S.SimState, dec: P.Decision, on: torch.Tensor
 
 def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
            params: SimParams, const: tuple, act: torch.Tensor,
-           max_events: int, stats: RunStats) -> bool:
+           max_events: int, stats: RunStats,
+           up: torch.Tensor | None = None) -> bool:
     """Invoke every replica's scheduler until it returns a no-op or its
     batch queue (as counted at the start of the drain) is exhausted.
 
@@ -221,7 +282,7 @@ def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
         for _ in range(DRAIN_CHUNK):
             dec = P.dispatch(plan, st, tb, params.lcap,
                              params.cancel_infeasible, const,
-                             avail=avail)
+                             avail=avail, up=up)
             do_map = _apply_decision(st, dec, draining)
             m_oh = (ids == dec.machine[:, None]) & do_map[:, None]
             avail = torch.where(
@@ -237,8 +298,8 @@ def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
             return bool(more)
 
 
-def _start_tasks(st: S.SimState, tb: S.StaticTables,
-                 act: torch.Tensor) -> None:
+def _start_tasks(st: S.SimState, tb: S.StaticTables, act: torch.Tensor,
+                 up: torch.Tensor | None = None) -> None:
     tasks, mach = st.tasks, st.machines
     n = tasks.arrival.shape[1]
     n_m = mach.mtype.shape[1]
@@ -246,6 +307,8 @@ def _start_tasks(st: S.SimState, tb: S.StaticTables,
     pick, has = K.fused_start_pick(tasks.status, tasks.machine, tasks.seq,
                                    n_m, in_mq=S.IN_MQ)
     start = act[:, None] & (mach.running < 0) & has
+    if up is not None:
+        start = start & up
     dur = S.exec_time(tb, tasks, pick.clamp(0, n - 1).long(), mach.mtype,
                       mach.speed)
     t = st.time[:, None]
@@ -256,14 +319,40 @@ def _start_tasks(st: S.SimState, tb: S.StaticTables,
     st.mq_count = st.mq_count - start.to(torch.int32)
 
 
-def _next_event_time(st: S.SimState) -> torch.Tensor:
+def sorted_transitions(dyn: S.MachineDynamics) -> torch.Tensor:
+    """(R, 2MK + 1) run-invariant availability transitions of each
+    replica, sorted and +inf-terminated: the earliest one after the
+    current time is then one ``searchsorted``."""
+    r = dyn.down_start.shape[0]
+    trans = torch.cat([dyn.down_start.reshape(r, -1),
+                       dyn.down_end.reshape(r, -1)], 1)
+    inf = torch.full((r, 1), S.INF, dtype=trans.dtype, device=trans.device)
+    return torch.cat([torch.sort(trans, 1).values, inf], 1)
+
+
+def _fold_transitions(t: torch.Tensor, st: S.SimState,
+                      transitions: torch.Tensor | None) -> torch.Tensor:
+    """Availability transitions strictly after the current time are
+    event candidates too."""
+    if transitions is None:
+        return t
+    idx = torch.searchsorted(transitions, st.time[:, None].contiguous(),
+                             right=True)
+    idx = idx.clamp(max=transitions.shape[1] - 1)
+    return torch.minimum(t, transitions.gather(1, idx)[:, 0])
+
+
+def _next_event_time(st: S.SimState,
+                     transitions: torch.Tensor | None = None
+                     ) -> torch.Tensor:
     tasks, mach = st.tasks, st.machines
     t_arr, t_dl = K.fused_event_bounds(
         tasks.status, tasks.arrival, tasks.deadline,
         not_arrived=S.NOT_ARRIVED, live_lo=S.IN_BATCH, live_hi=S.RUNNING)
     t_cmp = signed_min(torch.where(mach.running >= 0, mach.busy_until,
                                    S.INF), 1)
-    return torch.minimum(torch.minimum(t_arr, t_cmp), t_dl)
+    return _fold_transitions(torch.minimum(torch.minimum(t_arr, t_cmp),
+                                           t_dl), st, transitions)
 
 
 # --------------------------------------------------------------------------
@@ -272,17 +361,23 @@ def _next_event_time(st: S.SimState) -> torch.Tensor:
 def run_sweep(tasks: S.TaskTable, mtype: torch.Tensor,
               tables: S.StaticTables, policy_ids: torch.Tensor,
               params: SimParams = SimParams(),
-              stats: RunStats | None = None) -> S.SimState:
+              stats: RunStats | None = None,
+              dynamics: S.MachineDynamics | None = None) -> S.SimState:
     """Run R replicas to completion; returns the final (R, ...) state.
 
     Every argument carries the leading replica axis and lies on the
     device the run uses.  ``policy_ids`` (R,) picks each replica's
     policy by the reference's ids (``schedulers.POLICY_IDS``).  Pass a
-    ``RunStats`` to read the loop's event, trip and host-read counts."""
+    ``RunStats`` to read the loop's event, trip and host-read counts,
+    and a ``MachineDynamics`` to make the fleet dynamic (failures, spot
+    preemption, DVFS)."""
     stats = RunStats() if stats is None else stats
-    st = S.init_state(tasks, mtype)
+    st = S.init_state(tasks, mtype, dynamics)
     r, n = st.tasks.arrival.shape
     max_events = params.max_events or (4 * n + 16)
+    if dynamics is not None and params.max_events is None:
+        # every down interval contributes at most 2 extra events
+        max_events += 2 * dynamics.down_start.shape[-1] * mtype.shape[-1]
     if r == 0 or n == 0 or max_events <= 0:
         return st
     plan = P.Plan.make(policy_ids.to(torch.int32), st, tables)
@@ -290,17 +385,23 @@ def run_sweep(tasks: S.TaskTable, mtype: torch.Tensor,
     rows = torch.arange(r, device=mtype.device)[:, None]
     p_active = tables.power[rows, st.machines.mtype.long(), 1] * \
         st.machines.power_scale
+    transitions = sorted_transitions(dynamics) if dynamics is not None \
+        else None
     act = torch.ones(r, dtype=torch.bool, device=mtype.device)
+    up = None
     more = True
     while more:
-        t = _next_event_time(st)
+        t = _next_event_time(st, transitions)
         st.time = torch.where(act, t, st.time)
         _completions(st, p_active, act)
+        if dynamics is not None:
+            _availability(st, dynamics, p_active, act)
+            up = S.machine_up(dynamics, st.time)
         _arrivals(st, params.qcap, act)
         _deadline_drops(st, p_active, act)
         more = _drain(st, tables, plan, params, const, act, max_events,
-                      stats)
-        _start_tasks(st, tables, act)
+                      stats, up)
+        _start_tasks(st, tables, act, up)
         st.n_events = st.n_events + act.to(torch.int32)
         act = (st.n_live > 0) & (st.n_events < max_events)
         stats.events += 1
@@ -331,9 +432,11 @@ def simulate(workload, eet: EETTable, power: np.ndarray,
              machine_types, policy: str = "mct", *, lcap: int = 4,
              qcap: int | None = None, cancel_infeasible: bool = True,
              noise: np.ndarray | None = None,
+             dynamics: S.MachineDynamics | None = None,
              device="cuda") -> S.SimState:
     """One replica, named policy; returns a one-replica (leading axis 1)
-    final state."""
+    final state.  ``dynamics`` (leading axis 1, on ``device``, e.g. from
+    ``workload.Scenario.dynamics``) makes the fleet dynamic."""
     dev = resolve_device(device)
     params = SimParams(lcap=lcap, qcap=qcap or (1 << 30),
                        cancel_infeasible=cancel_infeasible)
@@ -343,4 +446,5 @@ def simulate(workload, eet: EETTable, power: np.ndarray,
                             device=dev)
     pid = torch.tensor([P.POLICY_IDS[policy]], dtype=torch.int32,
                        device=dev)
-    return run_sweep(workload.to_task_table(dev), mtype, tables, pid, params)
+    return run_sweep(workload.to_task_table(dev), mtype, tables, pid, params,
+                     dynamics=dynamics)

@@ -1,9 +1,10 @@
 """Simulation outputs for one replica of a batch: the report row.
 
-The counterpart of ``repro.core.report`` for flat (static-fleet,
-independent-task) runs: ``SimReport``, ``metrics``, ``heterogeneity`` and
-``summarize``.  Host-side numpy, as in the reference; the float sums over
-machines use ``reduce.ordered_sum`` so the rows equal the reference's.
+The counterpart of ``repro.core.report`` for independent-task runs on a
+static or dynamic fleet: ``SimReport``, ``metrics``, ``heterogeneity``
+and ``summarize``.  Host-side numpy, as in the reference; the float sums
+over machines use ``reduce.ordered_sum`` so the rows equal the
+reference's.
 """
 from __future__ import annotations
 
@@ -82,11 +83,14 @@ class SimReport:
         }
 
 
-def metrics(st: S.SimState, tables: S.StaticTables,
-            replica: int = 0) -> SimReport:
-    """Host-side report of replica ``replica`` of a final state."""
-    one, tab = st.take(slice(replica, replica + 1)), \
-        tables.take(slice(replica, replica + 1))
+def metrics(st: S.SimState, tables: S.StaticTables, replica: int = 0,
+            dynamics: S.MachineDynamics | None = None) -> SimReport:
+    """Host-side report of replica ``replica`` of a final state.  Pass
+    the run's ``dynamics`` for the availability and the downtime-
+    corrected idle energy."""
+    rows = slice(replica, replica + 1)
+    one, tab = st.take(rows), tables.take(rows)
+    dyn = None if dynamics is None else dynamics.take(rows)
     status = one.tasks.status[0].cpu().numpy()
     t_end = one.tasks.t_end[0].cpu().numpy()
     t_start = one.tasks.t_start[0].cpu().numpy()
@@ -96,10 +100,12 @@ def metrics(st: S.SimState, tables: S.StaticTables,
     started = t_start >= 0
     span = float(E.makespan(one)[0])
     active = float(ordered_sum(E.active_energy(one), 1)[0])
-    idle = float(ordered_sum(E.idle_energy(one, tab), 1)[0])
+    idle = float(ordered_sum(E.idle_energy(one, tab, dyn), 1)[0])
     n_done = int(completed.sum())
     util = one.machines.active_time[0].cpu().numpy() / max(span, 1e-9)
     n_pre = int((status == S.PREEMPTED).sum())
+    avail = 1.0 if dyn is None else float(E.mean_availability(
+        E.availability(dyn, E.makespan(one)))[0])
     return SimReport(
         n_tasks=n,
         completed=n_done,
@@ -108,7 +114,7 @@ def metrics(st: S.SimState, tables: S.StaticTables,
         missed_running=int((status == S.MISSED_RUNNING).sum()),
         preempted=n_pre,
         requeues=int(one.n_preempts[0].sum()) - n_pre,
-        availability=1.0,
+        availability=avail,
         makespan=span,
         total_energy=active + idle,
         active_energy=active,
@@ -146,11 +152,11 @@ def heterogeneity(eet: np.ndarray, mtype: np.ndarray,
             "heterogeneity": round(perf_cv * type_entropy, 6)}
 
 
-def summarize(st: S.SimState, tables: S.StaticTables,
-              replica: int = 0) -> dict:
+def summarize(st: S.SimState, tables: S.StaticTables, replica: int = 0,
+              dynamics: S.MachineDynamics | None = None) -> dict:
     """One flat dict for replica ``replica``: the ``SimReport`` row plus
     the fleet heterogeneity score."""
-    row = metrics(st, tables, replica).row()
+    row = metrics(st, tables, replica, dynamics).row()
     row.update(heterogeneity(tables.eet[replica].cpu().numpy(),
                              st.machines.mtype[replica].cpu().numpy(),
                              st.machines.speed[replica].cpu().numpy()))

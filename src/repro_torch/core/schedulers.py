@@ -1,11 +1,12 @@
 """Scheduling policies, batched over replicas.
 
-The counterpart of ``repro.core.schedulers`` for this slice: the nine
-heuristics ``fcfs, rr, met, mct, ee_met, ee_mct, minmin, edf_mct, heft``
+The counterpart of ``repro.core.schedulers``: the ten heuristics
+``fcfs, rr, met, mct, ee_met, ee_mct, minmin, maxmin, edf_mct, heft``
 with the reference's policy ids, the cancellation wrapper and
-``dispatch``.  ``maxmin`` (whose kernel comes in a later slice) and the
-learned ``mlp``/``linear`` policies keep their ids but raise
-``NotImplementedError``; they never fall back to another policy.
+``dispatch``.  The learned ``mlp``/``linear`` policies keep their ids
+but raise ``NotImplementedError``; they never fall back to another
+policy.  Down machines of a dynamic fleet have no ``room``, so every
+policy is failure-aware through the view.
 
 The reference evaluates one replica at a time and picks the policy with
 ``lax.switch``.  Here one call decides for all R replicas at once, each
@@ -13,8 +14,9 @@ with its own policy.  The immediate policies (every one but ``rr`` and
 ``minmin``) share a shape — pick a task, score the machines, take the
 masked argmin — so each returns its task and (R, M) score and mask rows,
 ``dispatch`` selects the rows by policy id and reduces them with ONE
-``masked_argmin`` for the whole batch; ``minmin`` runs its fused kernel
-on the replicas that use it.  Every replica's decision is the one its
+``masked_argmin`` for the whole batch; ``minmin`` and ``maxmin`` run
+their fused kernels on the replicas that use them.  Every replica's
+decision is the one its
 ``lax.switch`` branch takes.
 """
 from __future__ import annotations
@@ -33,9 +35,6 @@ POLICY_NAMES = ["fcfs", "rr", "met", "mct", "ee_met", "ee_mct", "minmin",
                 "maxmin", "edf_mct", "heft", "mlp", "linear"]
 POLICY_IDS = {name: i for i, name in enumerate(POLICY_NAMES)}
 NOT_PORTED = {
-    "maxmin": "the maxmin policy and its fused_maxmin kernel are the next "
-              "slice of the port (ROADMAP.md, queue A item 2 / queue B "
-              "item 3)",
     "mlp": "learned policies are not ported yet (ROADMAP.md, queue A "
            "item 14)",
     "linear": "learned policies are not ported yet (ROADMAP.md, queue A "
@@ -52,7 +51,7 @@ class Decision(NamedTuple):
 class SchedView(NamedTuple):
     """Tensors shared by all policies, built once per drain trip."""
     in_batch: torch.Tensor   # bool (R, N)
-    room: torch.Tensor       # bool (R, M)  machine queue has space
+    room: torch.Tensor       # bool (R, M)  queue has space AND is up
     avail: torch.Tensor      # f32 (R, M)   earliest start for new work
     eet_nm: torch.Tensor     # f32 (R, N, M) expected exec time
     energy_nm: torch.Tensor  # f32 (R, N, M) eet * active power
@@ -83,11 +82,16 @@ def expected_tables(state: S.SimState, tables: S.StaticTables
 
 def build_view(state: S.SimState, tables: S.StaticTables, lcap: int,
                const: tuple | None = None,
-               avail: torch.Tensor | None = None) -> SchedView:
+               avail: torch.Tensor | None = None,
+               up: torch.Tensor | None = None) -> SchedView:
     """``const``: optional precomputed (eet_nm, energy_nm); ``avail``:
-    optional carried (R, M) machine-available vector."""
+    optional carried (R, M) machine-available vector; ``up``: optional
+    (R, M) availability mask of a dynamic fleet (down machines have no
+    room)."""
     in_batch = state.tasks.status == S.IN_BATCH
     room = state.mq_count < lcap
+    if up is not None:
+        room = room & up
     if avail is None:
         avail = S.machine_available(state, tables)
     eet_nm, energy_nm = const if const is not None else \
@@ -192,32 +196,54 @@ def round_robin(state, view: SchedView) -> Decision:
     return _head_decision(view, view.head, m)
 
 
+def _pair_inputs(state, view: SchedView, rows: torch.Tensor | None):
+    """The fused kernels' (avail, in_batch, room, type_id) of the
+    replicas ``rows`` (None = all), and whether each has a valid
+    (in_batch, room) pair."""
+    def sel(x):
+        return x if rows is None else x[rows]
+
+    in_batch, room = sel(view.in_batch), sel(view.room)
+    return (sel(view.avail), in_batch, room, sel(state.tasks.type_id)), \
+        in_batch.any(1) & room.any(1)
+
+
 def minmin(state, view: SchedView, rows: torch.Tensor | None,
            eet_m: torch.Tensor) -> Decision:
     """Classic Min-Min over the replicas ``rows`` (None = all): the
     (task, machine) pair of minimum expected completion.  The fused
     kernel builds the pairs on the fly from ``eet_m``, the speed-scaled
     (T, M) tables of those rows."""
-    def sel(x):
-        return x if rows is None else x[rows]
-
-    in_batch, room, avail = sel(view.in_batch), sel(view.room), \
-        sel(view.avail)
-    n_m = room.shape[1]
-    flat, _ = K.fused_minmin(avail, in_batch, room,
-                             sel(state.tasks.type_id), eet_m)
+    args, ok = _pair_inputs(state, view, rows)
+    n_m = view.room.shape[1]
+    flat, _ = K.fused_minmin(*args, eet_m)
     flat = flat.clamp(min=0)
-    ok = in_batch.any(1) & room.any(1)
     minus = torch.full_like(flat, -1)
     return Decision(torch.where(ok, flat // n_m, minus).to(torch.int32),
                     torch.where(ok, flat % n_m, minus).to(torch.int32),
                     torch.zeros_like(ok))
 
 
+def maxmin(state, view: SchedView, rows: torch.Tensor | None,
+           eet_m: torch.Tensor) -> Decision:
+    """Classic Max-Min over the replicas ``rows`` (None = all): the task
+    whose best expected completion is the worst, on its best machine."""
+    args, ok = _pair_inputs(state, view, rows)
+    t, m, _ = K.fused_maxmin(*args, eet_m)
+    minus = torch.full_like(t, -1)
+    return Decision(torch.where(ok, t, minus).to(torch.int32),
+                    torch.where(ok, m, minus).to(torch.int32),
+                    torch.zeros_like(ok))
+
+
+PAIR_POLICIES = {"minmin": minmin, "maxmin": maxmin}
+
+
 def scaled_eet_table(state: S.SimState, tables: S.StaticTables
                      ) -> torch.Tensor:
-    """(R, T, M) speed-scaled EET table for the fused Min-Min kernel:
-    elementwise the same division as the ``eet_nm`` gather."""
+    """(R, T, M) speed-scaled EET table for the fused Min-Min and
+    Max-Min kernels: elementwise the same division as the ``eet_nm``
+    gather."""
     mach = state.machines
     r = torch.arange(mach.mtype.shape[0], device=mach.mtype.device)
     eet = tables.eet[r[:, None, None],
@@ -233,11 +259,12 @@ def scaled_eet_table(state: S.SimState, tables: S.StaticTables
 @dataclass
 class Plan:
     """Which policies a batch runs, fixed for the whole run: per-replica
-    selection masks and the replica rows of ``minmin``."""
+    selection masks, and for ``minmin``/``maxmin`` the replica rows that
+    run them (None = every replica) with those rows' kernel tables."""
     names: tuple[str, ...]              # policies present
     is_policy: dict                     # name -> bool (R,)
-    minmin_rows: torch.Tensor | None    # replica rows running minmin
-    eet_m: torch.Tensor | None          # (R_minmin, T, M) kernel table
+    pair_rows: dict                     # name -> (R_p,) rows or None
+    eet_m: dict                         # name -> (R_p, T, M) kernel table
 
     @classmethod
     def make(cls, policy_ids: torch.Tensor, state: S.SimState,
@@ -253,13 +280,15 @@ class Plan:
                     f"policy {name!r}: {NOT_PORTED[name]}")
             names.append(name)
         is_policy = {n: policy_ids == POLICY_IDS[n] for n in names}
-        rows = eet_m = None
-        if "minmin" in names:
-            eet_m = scaled_eet_table(state, tables)
-            if len(names) > 1:
-                rows = torch.nonzero(is_policy["minmin"])[:, 0]
-                eet_m = eet_m[rows]
-        return cls(tuple(names), is_policy, rows, eet_m)
+        pair = [name for name in PAIR_POLICIES if name in names]
+        table = scaled_eet_table(state, tables) if pair else None
+        pair_rows, eet_m = {}, {}
+        for name in pair:
+            rows = None if len(names) == 1 else \
+                torch.nonzero(is_policy[name])[:, 0]
+            pair_rows[name] = rows
+            eet_m[name] = table if rows is None else table[rows]
+        return cls(tuple(names), is_policy, pair_rows, eet_m)
 
 
 def _cancel_wrap(dec: Decision, view: SchedView, state: S.SimState,
@@ -277,9 +306,11 @@ def _cancel_wrap(dec: Decision, view: SchedView, state: S.SimState,
 def dispatch(plan: Plan, state: S.SimState, tables: S.StaticTables,
              lcap: int, cancel_infeasible: bool,
              const: tuple | None = None, *,
-             avail: torch.Tensor | None = None) -> Decision:
-    """Each replica's policy decision plus the cancellation wrapper."""
-    view = build_view(state, tables, lcap, const, avail)
+             avail: torch.Tensor | None = None,
+             up: torch.Tensor | None = None) -> Decision:
+    """Each replica's policy decision plus the cancellation wrapper;
+    ``up`` is the (R, M) availability mask of a dynamic fleet."""
+    view = build_view(state, tables, lcap, const, avail, up)
     r = view.head.shape[0]
     task = torch.full((r,), -1, dtype=torch.int32, device=view.head.device)
     machine = task.clone()
@@ -303,12 +334,12 @@ def dispatch(plan: Plan, state: S.SimState, tables: S.StaticTables,
         on = plan.is_policy["rr"]
         task = torch.where(on, dec.task, task)
         machine = torch.where(on, dec.machine, machine)
-    if "minmin" in plan.names:
-        dec = minmin(state, view, plan.minmin_rows, plan.eet_m)
-        if plan.minmin_rows is None:
+    for name, rows in plan.pair_rows.items():
+        dec = PAIR_POLICIES[name](state, view, rows, plan.eet_m[name])
+        if rows is None:
             task, machine = dec.task, dec.machine
         else:
-            task = task.index_copy(0, plan.minmin_rows, dec.task)
-            machine = machine.index_copy(0, plan.minmin_rows, dec.machine)
+            task = task.index_copy(0, rows, dec.task)
+            machine = machine.index_copy(0, rows, dec.machine)
     return _cancel_wrap(Decision(task, machine, torch.zeros_like(
         view.any_room)), view, state, cancel_infeasible)

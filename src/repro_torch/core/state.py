@@ -10,9 +10,10 @@ leading replica axis R (the reference vmaps one replica at a time):
   ``machine[r] == m`` (service order is the mapping sequence ``seq``),
 * cancelled / missed tasks sit in terminal statuses.
 
-This slice covers independent tasks on a static fleet: ``speed`` and
-``power_scale`` are ones, so the DVFS and availability fields of the
-reference exist only to keep the formulas in the reference's order.
+A dynamic fleet is described by :class:`MachineDynamics` (down
+intervals, eviction semantics and DVFS multipliers per machine, again
+with a leading R axis); without one, ``speed`` and ``power_scale`` are
+ones and no machine ever goes down.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.reduce import ordered_sum
 
 NOT_ARRIVED = 0      # generated but not yet in the system
@@ -83,8 +85,8 @@ class MachineState(_Batched):
     busy_until: torch.Tensor   # f32  completion time of `running`
     active_time: torch.Tensor  # f32  accumulated execution seconds
     energy: torch.Tensor       # f32  accumulated active energy (J)
-    speed: torch.Tensor        # f32  DVFS speed multiplier (ones here)
-    power_scale: torch.Tensor  # f32  DVFS power multiplier (ones here)
+    speed: torch.Tensor        # f32  DVFS speed multiplier (EET /= speed)
+    power_scale: torch.Tensor  # f32  DVFS power multiplier
 
 
 @dataclasses.dataclass
@@ -113,9 +115,51 @@ class StaticTables(_Batched):
     rank: torch.Tensor   # f32 (R, N) HEFT upward rank (zeros here)
 
 
-def init_state(tasks: TaskTable, mtype: torch.Tensor) -> SimState:
+@dataclasses.dataclass
+class MachineDynamics(_Batched):
+    """Dynamic-scenario description of each replica's fleet.
+
+    Machine ``m`` of replica ``r`` is down at ``t`` when
+    ``down_start[r, m, k] <= t < down_end[r, m, k]`` for some k (unused
+    intervals are inf).  A down transition preempts the running task and
+    flushes the machine queue: with ``kill`` the evicted tasks end
+    ``PREEMPTED`` (spot reclaim), otherwise they rejoin the batch queue
+    and restart from scratch (fail/repair).  ``speed`` divides the EET
+    rows and ``power_scale`` multiplies idle and active power.
+    """
+
+    speed: torch.Tensor        # f32 (R, M)
+    power_scale: torch.Tensor  # f32 (R, M)
+    down_start: torch.Tensor   # f32 (R, M, K)
+    down_end: torch.Tensor     # f32 (R, M, K)
+    kill: torch.Tensor         # bool (R, M)
+
+
+def static_dynamics(n_machines: int, n_intervals: int = 1, *,
+                    n_replicas: int = 1, device="cuda") -> MachineDynamics:
+    """A no-op scenario: full speed, nominal power, never down."""
+    device = resolve_device(device)
+    rm = (n_replicas, n_machines)
+    inf = torch.full(rm + (n_intervals,), INF, device=device)
+    return MachineDynamics(
+        speed=torch.ones(rm, device=device),
+        power_scale=torch.ones(rm, device=device),
+        down_start=inf, down_end=inf.clone(),
+        kill=torch.zeros(rm, dtype=torch.bool, device=device))
+
+
+def machine_up(dyn: MachineDynamics, t: torch.Tensor) -> torch.Tensor:
+    """(R, M) bool: machine available (inside no down interval) at the
+    replica's time ``t`` (R,)."""
+    t = t[:, None, None]
+    return ~((dyn.down_start <= t) & (t < dyn.down_end)).any(-1)
+
+
+def init_state(tasks: TaskTable, mtype: torch.Tensor,
+               dynamics: MachineDynamics | None = None) -> SimState:
     """Initial state of every replica: all tasks NOT_ARRIVED, all
-    machines idle at full speed and nominal power."""
+    machines idle, at the DVFS point of ``dynamics`` (full speed and
+    nominal power without one)."""
     r, n = tasks.arrival.shape
     m = mtype.shape[-1]
     dev = tasks.arrival.device
@@ -123,14 +167,20 @@ def init_state(tasks: TaskTable, mtype: torch.Tensor) -> SimState:
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
+    if dynamics is None:
+        speed = full((r, m), 1.0, torch.float32)
+        power_scale = full((r, m), 1.0, torch.float32)
+    else:
+        speed = dynamics.speed.to(torch.float32).clone()
+        power_scale = dynamics.power_scale.to(torch.float32).clone()
     machines = MachineState(
         mtype=mtype.to(torch.int32),
         running=full((r, m), -1, torch.int32),
         busy_until=full((r, m), 0.0, torch.float32),
         active_time=full((r, m), 0.0, torch.float32),
         energy=full((r, m), 0.0, torch.float32),
-        speed=full((r, m), 1.0, torch.float32),
-        power_scale=full((r, m), 1.0, torch.float32),
+        speed=speed,
+        power_scale=power_scale,
     )
     table = TaskTable(
         arrival=tasks.arrival.to(torch.float32),

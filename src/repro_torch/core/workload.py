@@ -1,8 +1,11 @@
 """Workload generation: numpy arrival draws, handed to torch at the end.
 
-A copy of the parts of ``repro.core.workload`` this slice needs (the
-Poisson generator and the task-table conversion).  For the same seed the
-arrays are bit-equal to the reference's.
+A copy of the parts of ``repro.core.workload`` the port runs: the five
+arrival generators and their registry, the task-table conversion, and
+the dynamic-fleet inputs (``DVFS_STATES``, ``failure_trace``,
+``Scenario``, ``make_scenario``).  For the same seed every array is
+bit-equal to the reference's; only ``Scenario.dynamics`` differs, in
+returning the port's ``state.MachineDynamics``.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.state import TaskTable
+from repro_torch.core.state import MachineDynamics, TaskTable
 
 
 @dataclass
@@ -83,3 +86,232 @@ def poisson_workload(n_tasks: int, rate: float, n_task_types: int, *,
     jitter = rng.lognormal(0.0, slack_jitter, size=n_tasks)
     deadline = arrival + slack * jitter * mean_eet[type_id]
     return Workload(arrival, type_id, deadline.astype(np.float32))
+
+
+def uniform_workload(n_tasks: int, horizon: float, n_task_types: int, *,
+                     mean_eet: np.ndarray | None = None, slack: float = 3.0,
+                     seed: int = 0) -> Workload:
+    rng = np.random.default_rng(seed)
+    arrival = np.sort(rng.uniform(0, horizon, n_tasks)).astype(np.float32)
+    type_id = rng.integers(0, n_task_types, n_tasks)
+    if mean_eet is None:
+        mean_eet = np.ones(n_task_types, np.float32)
+    deadline = arrival + slack * mean_eet[type_id]
+    return Workload(arrival, type_id, deadline.astype(np.float32))
+
+
+def bursty_workload(n_tasks: int, rate: float, n_task_types: int, *,
+                    burst_factor: float = 8.0, burst_prob: float = 0.1,
+                    mean_eet: np.ndarray | None = None, slack: float = 3.0,
+                    seed: int = 0) -> Workload:
+    """Markov-modulated Poisson: occasional bursts at burst_factor*rate."""
+    rng = np.random.default_rng(seed)
+    bursting = rng.random(n_tasks) < burst_prob
+    rates = np.where(bursting, rate * burst_factor, rate)
+    gaps = rng.exponential(1.0 / rates)
+    arrival = np.cumsum(gaps).astype(np.float32)
+    type_id = rng.integers(0, n_task_types, n_tasks)
+    if mean_eet is None:
+        mean_eet = np.ones(n_task_types, np.float32)
+    deadline = arrival + slack * mean_eet[type_id]
+    return Workload(arrival, type_id, deadline.astype(np.float32))
+
+
+def diurnal_workload(n_tasks: int, base_rate: float, n_task_types: int, *,
+                     amplitude: float = 0.8, period: float = 120.0,
+                     mean_eet: np.ndarray | None = None, slack: float = 3.0,
+                     slack_jitter: float = 0.5, seed: int = 0) -> Workload:
+    """Non-homogeneous Poisson with rate ``base_rate * (1 + amplitude *
+    sin(2 pi t / period))``, sampled by thinning a ``base_rate * (1 +
+    amplitude)`` process; ``amplitude`` in [0, 1]."""
+    if not 0.0 <= amplitude <= 1.0:
+        raise ValueError(f"amplitude must be in [0, 1], got {amplitude}")
+    rng = np.random.default_rng(seed)
+    rate_max = base_rate * (1.0 + amplitude)
+    arrival = np.empty(n_tasks, np.float64)
+    t, k = 0.0, 0
+    while k < n_tasks:
+        t += rng.exponential(1.0 / rate_max)
+        rate_t = base_rate * (1.0 + amplitude * np.sin(2 * np.pi * t / period))
+        if rng.random() * rate_max <= rate_t:
+            arrival[k] = t
+            k += 1
+    arrival = arrival.astype(np.float32)
+    type_id = rng.integers(0, n_task_types, n_tasks)
+    if mean_eet is None:
+        mean_eet = np.ones(n_task_types, np.float32)
+    jitter = rng.lognormal(0.0, slack_jitter, size=n_tasks)
+    deadline = arrival + slack * jitter * mean_eet[type_id]
+    return Workload(arrival, type_id, deadline.astype(np.float32))
+
+
+def onoff_workload(n_tasks: int, rate: float, n_task_types: int, *,
+                   mean_on: float = 20.0, mean_off: float = 10.0,
+                   off_rate_frac: float = 0.05,
+                   mean_eet: np.ndarray | None = None, slack: float = 3.0,
+                   slack_jitter: float = 0.5, seed: int = 0) -> Workload:
+    """Two-state Markov-modulated Poisson: exponential ON/OFF dwell
+    times, emitting at ``rate`` when ON and ``off_rate_frac * rate``
+    when OFF."""
+    rng = np.random.default_rng(seed)
+    arrival = np.empty(n_tasks, np.float64)
+    t, k = 0.0, 0
+    on = True
+    t_switch = rng.exponential(mean_on)
+    while k < n_tasks:
+        r = rate if on else max(rate * off_rate_frac, 1e-9)
+        gap = rng.exponential(1.0 / r)
+        if t + gap >= t_switch:
+            # memoryless: restart the draw from the switch point
+            t = t_switch
+            on = not on
+            t_switch = t + rng.exponential(mean_on if on else mean_off)
+            continue
+        t += gap
+        arrival[k] = t
+        k += 1
+    arrival = arrival.astype(np.float32)
+    type_id = rng.integers(0, n_task_types, n_tasks)
+    if mean_eet is None:
+        mean_eet = np.ones(n_task_types, np.float32)
+    jitter = rng.lognormal(0.0, slack_jitter, size=n_tasks)
+    deadline = arrival + slack * jitter * mean_eet[type_id]
+    return Workload(arrival, type_id, deadline.astype(np.float32))
+
+
+# Named arrival processes with one call shape, so an experiment can sweep
+# the arrival pattern: f(n_tasks, rate, n_task_types, mean_eet, seed)
+ARRIVAL_GENERATORS = {
+    "poisson": lambda n, rate, ntt, me, seed: poisson_workload(
+        n, rate=rate, n_task_types=ntt, mean_eet=me, slack=4.0, seed=seed),
+    "bursty": lambda n, rate, ntt, me, seed: bursty_workload(
+        n, rate=rate, n_task_types=ntt, mean_eet=me, slack=4.0, seed=seed),
+    "diurnal": lambda n, rate, ntt, me, seed: diurnal_workload(
+        n, base_rate=rate, n_task_types=ntt, mean_eet=me, slack=4.0,
+        seed=seed),
+    "onoff": lambda n, rate, ntt, me, seed: onoff_workload(
+        n, rate=rate, n_task_types=ntt, mean_eet=me, slack=4.0, seed=seed),
+}
+
+
+def register_arrival_generator(name: str, fn) -> None:
+    """Register ``fn(n_tasks, rate, n_task_types, mean_eet, seed) ->
+    Workload`` under ``name`` for ``WorkloadAxis(arrivals=...)``;
+    duplicates raise."""
+    if name in ARRIVAL_GENERATORS:
+        raise ValueError(f"arrival generator {name!r} already registered")
+    ARRIVAL_GENERATORS[name] = fn
+
+
+def resolve_arrivals(names) -> tuple[str, ...]:
+    """Validate arrival-generator names against the registry."""
+    names = tuple(names)
+    unknown = [n for n in names if n not in ARRIVAL_GENERATORS]
+    if unknown:
+        raise ValueError(f"unknown arrival generators {unknown}; known: "
+                         f"{sorted(ARRIVAL_GENERATORS)}")
+    return names
+
+
+# ---------------------------------------------------------------------------
+# Machine dynamics: availability traces + DVFS states
+# ---------------------------------------------------------------------------
+# DVFS operating points: (speed multiplier, power multiplier)
+DVFS_STATES: dict[str, tuple[float, float]] = {
+    "nominal": (1.00, 1.00),
+    "balanced": (0.80, 0.55),
+    "powersave": (0.60, 0.30),
+    "turbo": (1.20, 1.60),
+}
+
+
+def failure_trace(n_machines: int, n_intervals: int, *,
+                  mtbf: float, mttr: float, t0: float = 0.0,
+                  seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Alternating up/down renewal process per machine: up ~ Exp(mtbf),
+    down ~ Exp(mttr).  Returns ``(down_start, down_end)``, each (M, K)
+    float32."""
+    rng = np.random.default_rng(seed)
+    down_start = np.full((n_machines, n_intervals), np.inf, np.float32)
+    down_end = np.full((n_machines, n_intervals), np.inf, np.float32)
+    for m in range(n_machines):
+        t = t0
+        for k in range(n_intervals):
+            t += rng.exponential(mtbf)
+            d = rng.exponential(mttr)
+            down_start[m, k] = t
+            down_end[m, k] = t + d
+            t += d
+    return down_start, down_end
+
+
+@dataclass
+class Scenario:
+    """One simulation cell: workload + machine dynamics (per-machine
+    DVFS multipliers, an (M, K) availability trace, and the eviction
+    semantics: True kills, False requeues)."""
+
+    workload: Workload
+    speed: np.ndarray           # (M,)
+    power_scale: np.ndarray     # (M,)
+    down_start: np.ndarray      # (M, K)
+    down_end: np.ndarray        # (M, K)
+    kill: np.ndarray            # (M,) bool
+    name: str = ""
+
+    def __post_init__(self):
+        self.speed = np.asarray(self.speed, np.float32)
+        self.power_scale = np.asarray(self.power_scale, np.float32)
+        self.down_start = np.asarray(self.down_start, np.float32)
+        self.down_end = np.asarray(self.down_end, np.float32)
+        self.kill = np.asarray(self.kill, bool)
+
+    @property
+    def n_machines(self) -> int:
+        return self.speed.shape[0]
+
+    def dynamics(self, device="cuda") -> MachineDynamics:
+        """A one-replica (leading axis 1) ``MachineDynamics`` on
+        ``device``."""
+        dev = resolve_device(device)
+
+        def put(x):
+            return torch.as_tensor(np.ascontiguousarray(x)[None],
+                                   device=dev)
+
+        return MachineDynamics(
+            speed=put(self.speed), power_scale=put(self.power_scale),
+            down_start=put(self.down_start), down_end=put(self.down_end),
+            kill=put(self.kill))
+
+
+def make_scenario(workload: Workload, n_machines: int, *,
+                  fail_rate: float = 0.0, mttr: float = 5.0,
+                  spot: bool = False, dvfs: str | tuple[float, float]
+                  = "nominal", n_intervals: int = 4,
+                  seed: int = 0, name: str = "") -> Scenario:
+    """``fail_rate`` failures per second per machine (0 = always up,
+    mtbf = 1 / fail_rate); ``spot`` selects kill semantics; ``dvfs``
+    names a ``DVFS_STATES`` entry or gives a (speed, power) pair, applied
+    fleet-wide."""
+    if isinstance(dvfs, str):
+        speed_mult, power_mult = DVFS_STATES[dvfs]
+    else:
+        speed_mult, power_mult = dvfs
+    if fail_rate > 0.0:
+        down_start, down_end = failure_trace(
+            n_machines, n_intervals, mtbf=1.0 / fail_rate, mttr=mttr,
+            seed=seed)
+    else:
+        down_start = np.full((n_machines, n_intervals), np.inf, np.float32)
+        down_end = np.full((n_machines, n_intervals), np.inf, np.float32)
+    return Scenario(
+        workload=workload,
+        speed=np.full(n_machines, speed_mult, np.float32),
+        power_scale=np.full(n_machines, power_mult, np.float32),
+        down_start=down_start,
+        down_end=down_end,
+        kill=np.full(n_machines, spot, bool),
+        name=name or (f"fail={fail_rate:g}" + ("/spot" if spot else "")
+                      + f"/dvfs={dvfs}"),
+    )

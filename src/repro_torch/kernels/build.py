@@ -31,6 +31,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "e2c_masked_argmin": (_P, _P, _I, _I, _P, _P, _P),
     "e2c_fused_minmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "e2c_fused_maxmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                         _P),
     "e2c_fused_start_pick": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "e2c_fused_event_bounds": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }

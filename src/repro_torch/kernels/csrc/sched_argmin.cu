@@ -1,8 +1,9 @@
 // Dispatch and event-loop reductions of the E2C engine, for Hopper (sm_90a).
 //
-// Replaces four Pallas kernels of src/repro/kernels/sched_argmin.py:
+// Replaces the five Pallas kernels of src/repro/kernels/sched_argmin.py:
 //   masked_argmin       <- masked_argmin       (:89,  body _argmin_kernel)
 //   fused_minmin        <- fused_minmin        (:227, body _minmin_kernel)
+//   fused_maxmin        <- fused_maxmin        (:427, body _maxmin_kernel)
 //   fused_start_pick    <- fused_start_pick    (:315, body _start_pick_kernel)
 //   fused_event_bounds  <- fused_event_bounds  (:388, body _event_bounds_kernel)
 //
@@ -24,9 +25,12 @@
 //   * masked cells take part as 1e30, so a valid cell >= 1e30 loses to
 //     the first masked cell;
 //   * an empty mask returns the sentinels (-1, 1e30) / (+inf).
-// The event-bound minima order -0.0 below +0.0, like XLA's min, through
-// an order-preserving integer key.  The only float arithmetic is the
-// Min-Min completion avail + eet, one correctly rounded add, so the
+// Max-Min keeps the larger score and the lower task index on equal
+// scores, with the winner's own bits (-0.0 == +0.0 under comparison).
+// The event-bound minima and Max-Min's row minima order -0.0 below +0.0,
+// like XLA's min (the first through an order-preserving integer key).
+// The only float arithmetic is the completion avail + eet of Min-Min and
+// Max-Min, one correctly rounded add, so the
 // kernels agree bit for bit with their plain PyTorch versions
 // (kernels/ref.py).  The file is built with --fmad=false all the same.
 //
@@ -197,6 +201,119 @@ __global__ void fused_minmin_kernel(const float* __restrict__ avail,
 }
 
 // ---------------------------------------------------------------------------
+// fused_maxmin: the inputs of fused_minmin -> task i32 (R,), machine i32
+// (R,), score f32 (R,).  Per in-batch task row, the masked row minimum
+// (its first-index machine from a strict-< scan in increasing machine
+// order) is the task's score; the CTA then takes the largest score, the
+// lowest task index on equal scores.  A row outside the batch queue
+// scores -BIG with machine 0 in O(1): only the first such row of a
+// thread can still win, and only if every in-batch score is below -BIG.
+// No valid (in_batch, room) pair -> (-1, -1, -BIG).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ bool better_max(float v, int i, float bv,
+                                           int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+__device__ __forceinline__ void warp_argmax3(float& v, int& i, int& j) {
+  for (int off = 16; off > 0; off >>= 1) {
+    float ov = __shfl_down_sync(0xffffffffu, v, off);
+    int oi = __shfl_down_sync(0xffffffffu, i, off);
+    int oj = __shfl_down_sync(0xffffffffu, j, off);
+    if (better_max(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+      j = oj;
+    }
+  }
+}
+
+__global__ void fused_maxmin_kernel(const float* __restrict__ avail,
+                                    const uint8_t* __restrict__ in_batch,
+                                    const uint8_t* __restrict__ room,
+                                    const int* __restrict__ type_id,
+                                    const float* __restrict__ eet_m, int n,
+                                    int m, int t, int* __restrict__ out_task,
+                                    int* __restrict__ out_mach,
+                                    float* __restrict__ out_score) {
+  extern __shared__ unsigned char smem[];
+  float* s_avail = reinterpret_cast<float*>(smem);
+  uint8_t* s_room = reinterpret_cast<uint8_t*>(s_avail + m);
+  __shared__ float s_v[32];
+  __shared__ int s_i[32];
+  __shared__ int s_j[32];
+  const int64_t r = blockIdx.x;
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    s_avail[j] = avail[r * m + j];
+    s_room[j] = room[r * m + j];
+  }
+  __syncthreads();
+  int any_room = 0;
+  for (int j = 0; j < m; ++j) any_room |= s_room[j];
+  const uint8_t* inb = in_batch + r * n;
+  const int* tid = type_id + r * n;
+  const float* eet = eet_m + r * static_cast<int64_t>(t) * m;
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  int bm = 0;
+  int any = 0;
+  bool skipped = false;
+  // without room no pair is valid and the sentinel is returned
+  for (int row = threadIdx.x; any_room && row < n; row += blockDim.x) {
+    if (!inb[row]) {
+      if (!skipped && better_max(-kBig, row, bv, bi)) {
+        bv = -kBig;
+        bi = row;
+        bm = 0;
+      }
+      skipped = true;
+      continue;
+    }
+    any = 1;
+    const float* e = eet + static_cast<int64_t>(tid[row]) * m;
+    float rv = s_room[0] ? __fadd_rn(s_avail[0], e[0]) : kBig;
+    int rm = 0;
+    bool neg_zero = rv == 0.0f && signbit(rv);
+    for (int col = 1; col < m; ++col) {
+      const float x = s_room[col] ? __fadd_rn(s_avail[col], e[col]) : kBig;
+      neg_zero |= x == 0.0f && signbit(x);
+      if (x < rv) {
+        rv = x;
+        rm = col;
+      }
+    }
+    if (rv == 0.0f && neg_zero) rv = -0.0f;
+    if (better_max(rv, row, bv, bi)) {
+      bv = rv;
+      bi = row;
+      bm = rm;
+    }
+  }
+  any = __syncthreads_or(any);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  warp_argmax3(bv, bi, bm);
+  if (lane == 0) {
+    s_v[warp] = bv;
+    s_i[warp] = bi;
+    s_j[warp] = bm;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = (blockDim.x + 31) >> 5;
+    bv = lane < n_warps ? s_v[lane] : -INFINITY;
+    bi = lane < n_warps ? s_i[lane] : INT_MAX;
+    bm = lane < n_warps ? s_j[lane] : 0;
+    warp_argmax3(bv, bi, bm);
+    if (lane == 0) {
+      out_task[r] = any ? bi : -1;
+      out_mach[r] = any ? bm : -1;
+      out_score[r] = any ? bv : -kBig;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fused_start_pick: status/machine/seq i32 (R, N) -> pick i32 (R, M),
 // has u8 (R, M).  Per machine the lowest (seq, task id) among tasks queued
 // on it, by a 64-bit shared-memory atomicMin on (seq key << 32 | id).
@@ -322,6 +439,22 @@ int e2c_fused_minmin(const void* avail, const void* in_batch,
       static_cast<const uint8_t*>(room), static_cast<const int*>(type_id),
       static_cast<const float*>(eet_m), n, m, t, static_cast<int*>(out_idx),
       static_cast<float*>(out_min));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int e2c_fused_maxmin(const void* avail, const void* in_batch,
+                     const void* room, const void* type_id, const void* eet_m,
+                     int r, int n, int m, int t, void* out_task,
+                     void* out_mach, void* out_score, void* stream) {
+  const size_t smem = static_cast<size_t>(m) * (sizeof(float) + 1);
+  cudaError_t err = allow_smem(fused_maxmin_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_maxmin_kernel<<<r, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(avail), static_cast<const uint8_t*>(in_batch),
+      static_cast<const uint8_t*>(room), static_cast<const int*>(type_id),
+      static_cast<const float*>(eet_m), n, m, t, static_cast<int*>(out_task),
+      static_cast<int*>(out_mach), static_cast<float*>(out_score));
   return static_cast<int>(cudaGetLastError());
 }
 

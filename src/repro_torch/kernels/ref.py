@@ -52,6 +52,26 @@ def fused_minmin_ref(avail, in_batch, room, type_id, eet_m):
     return masked_argmin_ref(comp, mask)
 
 
+def fused_maxmin_ref(avail, in_batch, room, type_id, eet_m):
+    """Max-Min (task, machine, score) via the materialized (R, N, M)
+    path: each task's masked row minimum (-0.0 below +0.0, as the
+    reference's ``min``) and its first-index machine, then the first
+    in-batch task of largest row minimum; no valid pair -> (-1, -1,
+    -BIG).  -> (task (R,) i32, machine (R,) i32, score (R,) f32)."""
+    comp, mask = completion_ref(avail, in_batch, room, type_id, eet_m)
+    c = torch.where(mask, comp, BIG)
+    rowmin = signed_min(c, 2)                                 # (R, N)
+    rowarg = torch.argmin(c, dim=2)                           # first index
+    score = torch.where(in_batch, rowmin, -BIG)
+    t = torch.argmax(score, dim=1)                            # first max
+    found = mask.flatten(1).any(1)
+    pick = rowarg.gather(1, t[:, None])[:, 0]
+    best = score.gather(1, t[:, None])[:, 0]
+    return (torch.where(found, t, -1).to(torch.int32),
+            torch.where(found, pick, -1).to(torch.int32),
+            torch.where(found, best, -BIG))
+
+
 def fused_start_pick_ref(status: torch.Tensor, machine: torch.Tensor,
                          seq: torch.Tensor, n_machines: int, *,
                          in_mq: int = 2) -> tuple[torch.Tensor, torch.Tensor]:

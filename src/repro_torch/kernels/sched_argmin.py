@@ -1,12 +1,20 @@
 """Wrappers of the CUDA dispatch and event-loop kernels.
 
-Replaces the Pallas kernels of ``repro/kernels/sched_argmin.py``:
-``masked_argmin`` (:89), ``fused_minmin`` (:227), ``fused_start_pick``
-(:315) and ``fused_event_bounds`` (:388).  The kernels live in
-``csrc/sched_argmin.cu``; its header says what bounds them on the H100
-(bytes moved, and at the engine's small shapes launch latency) and how
-the sequential-grid carry of the Pallas versions became one CTA per
-replica with a (value, index) block reduction.
+Replaces the five Pallas kernels of ``repro/kernels/sched_argmin.py``:
+``masked_argmin`` (:89), ``fused_minmin`` (:227), ``fused_maxmin``
+(:427), ``fused_start_pick`` (:315) and ``fused_event_bounds`` (:388).
+The kernels live in ``csrc/sched_argmin.cu``; its header says how the
+sequential-grid carry of the Pallas versions became one CTA per replica
+with a (value, index) block reduction.
+
+What bounds them on the H100 is bytes, and at the engine's shapes launch
+latency below that: a call moves a few KB to a few hundred KB per
+replica and does one or two operations per byte.  ``fused_maxmin`` in
+particular reads ``in_batch`` and ``room`` whole but, of ``type_id`` and
+the (T, M) EET table, only the rows of tasks waiting in the batch queue;
+its design answers that by skipping a row outside the queue in O(1) and
+giving each thread whole task rows, so the (N, M) completion matrix and
+the per-task minima never leave registers.
 
 Every wrapper takes a leading replica axis R and computes, per replica,
 what the Pallas function computes for one.  A tensor on the CPU goes to
@@ -22,8 +30,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-NAMES = ("masked_argmin", "fused_minmin", "fused_start_pick",
-         "fused_event_bounds")
+NAMES = ("masked_argmin", "fused_minmin", "fused_maxmin",
+         "fused_start_pick", "fused_event_bounds")
 
 launches = dict.fromkeys(NAMES, 0)
 
@@ -117,6 +125,39 @@ def fused_minmin(avail: torch.Tensor, in_batch: torch.Tensor,
             vmin.data_ptr(), _stream()), "fused_minmin")
         _count("fused_minmin")
     return idx, vmin
+
+
+def fused_maxmin(avail: torch.Tensor, in_batch: torch.Tensor,
+                 room: torch.Tensor, type_id: torch.Tensor,
+                 eet_m: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Max-Min pair -> (task (R,) i32, machine (R,) i32, score (R,) f32).
+
+    The inputs of ``fused_minmin``.  Per replica, each in-batch task's
+    best completion over the machines with room (first-index machine)
+    is its score; the task of largest score wins, the first on ties.
+    No valid (in_batch, room) pair -> (-1, -1, -BIG)."""
+    if not _on_cuda(avail, in_batch, room, type_id, eet_m):
+        return ref.fused_maxmin_ref(avail, in_batch, room, type_id, eet_m)
+    r, m = avail.shape
+    n = in_batch.shape[1]
+    t = eet_m.shape[1]
+    avail = _expect(avail, torch.float32, (r, m), "avail")
+    in_batch = _expect(in_batch, torch.bool, (r, n), "in_batch")
+    room = _expect(room, torch.bool, (r, m), "room")
+    type_id = _expect(type_id, torch.int32, (r, n), "type_id")
+    eet_m = _expect(eet_m, torch.float32, (r, t, m), "eet_m")
+    task = torch.empty(r, dtype=torch.int32, device=avail.device)
+    mach = torch.empty(r, dtype=torch.int32, device=avail.device)
+    score = torch.empty(r, dtype=torch.float32, device=avail.device)
+    if r:
+        build.check(build.load().e2c_fused_maxmin(
+            avail.data_ptr(), in_batch.data_ptr(), room.data_ptr(),
+            type_id.data_ptr(), eet_m.data_ptr(), r, n, m, t,
+            task.data_ptr(), mach.data_ptr(), score.data_ptr(), _stream()),
+            "fused_maxmin")
+        _count("fused_maxmin")
+    return task, mach, score
 
 
 def fused_start_pick(status: torch.Tensor, machine: torch.Tensor,

@@ -1,19 +1,24 @@
-"""ExperimentSpec for flat replica sweeps: spec -> normalize -> run.
+"""ExperimentSpec for flat and scenario sweeps: spec -> normalize -> run.
 
-The counterpart of ``repro.launch.experiment`` for the flat mode (static
-fleet, independent tasks, Poisson arrivals): the same axes, the same
-per-replica random draws, the same summary columns.
+The counterpart of ``repro.launch.experiment`` for independent tasks on
+a static or dynamic fleet: the same axes, the same per-replica random
+draws, the same summary columns.
 
   spec       :class:`ExperimentSpec` — ``FleetAxis x WorkloadAxis x
-             PolicyAxis``, policy ``r % n_policies`` for replica r.
+             ScenarioAxis x PolicyAxis``, mixed radix over the replica
+             index r: flat, policy ``r % n_p`` and arrival process
+             ``(r // n_p) % n_a``; with a scenario axis, fail rate
+             ``r % n_f``, DVFS state ``(r // n_f) % n_d``, policy
+             ``(r // (n_f n_d)) % n_p`` and arrival process
+             ``(r // (n_f n_d n_p)) % n_a``.
   normalize  :func:`normalize` — draw every replica on the host with
              numpy, from the substream ``default_rng([seed, r])`` in the
              reference's order, and hand the stacked tables to torch.
   execute    :func:`run_experiment` — normalize + ``engine.run_sweep`` +
              :func:`summarize_replica` on the device.
 
-Scenario, workflow, streaming, tracing, metrics and learned-policy cells
-are later slices of the port; their axes do not exist here yet.
+Workflow, streaming, tracing, metrics and learned-policy cells are later
+slices of the port; their axes do not exist here yet.
 """
 from __future__ import annotations
 
@@ -29,15 +34,20 @@ from repro_torch.core import schedulers as P
 from repro_torch.core import state as S
 from repro_torch.core.eet import synth_eet
 from repro_torch.core.reduce import ordered_sum
-from repro_torch.core.workload import poisson_workload, task_table
+from repro_torch.core.workload import (ARRIVAL_GENERATORS, make_scenario,
+                                       poisson_workload, resolve_arrivals,
+                                       task_table)
 
-__all__ = ["FleetAxis", "WorkloadAxis", "PolicyAxis", "ExperimentSpec",
-           "Replicas", "ExperimentResult", "normalize", "run_experiment",
-           "summarize_replica"]
+__all__ = ["FleetAxis", "WorkloadAxis", "ScenarioAxis", "PolicyAxis",
+           "ExperimentSpec", "Replicas", "ExperimentResult", "normalize",
+           "run_experiment", "summarize_replica"]
 
 
-def summarize_replica(st: S.SimState, tables: S.StaticTables) -> dict:
-    """(R,) summary columns of every replica, on the device."""
+def summarize_replica(st: S.SimState, tables: S.StaticTables,
+                      dynamics: S.MachineDynamics | None = None) -> dict:
+    """(R,) summary columns of every replica, on the device.  With
+    ``dynamics`` the availability is the mean over machines and downtime
+    leaves the idle energy."""
     status = st.tasks.status
     completed = (status == S.COMPLETED).sum(1, dtype=torch.int32)
     missed = ((status == S.MISSED_QUEUE) | (status == S.MISSED_RUNNING)
@@ -46,7 +56,7 @@ def summarize_replica(st: S.SimState, tables: S.StaticTables) -> dict:
     preempted = (status == S.PREEMPTED).sum(1, dtype=torch.int32)
     makespan = EN.makespan(st)
     active_e = ordered_sum(st.machines.energy, 1)
-    idle_e = ordered_sum(EN.idle_energy(st, tables), 1)
+    idle_e = ordered_sum(EN.idle_energy(st, tables, dynamics), 1)
     n = status.shape[1]
     response = torch.where(status == S.COMPLETED,
                            st.tasks.t_end - st.tasks.arrival, 0.0)
@@ -54,7 +64,8 @@ def summarize_replica(st: S.SimState, tables: S.StaticTables) -> dict:
         "completed": completed, "missed": missed, "cancelled": cancelled,
         "preempted": preempted,
         "requeues": st.n_preempts.sum(1, dtype=torch.int32) - preempted,
-        "availability": torch.ones_like(makespan),
+        "availability": torch.ones_like(makespan) if dynamics is None
+        else EN.mean_availability(EN.availability(dynamics, makespan)),
         # the reference's compiler turns the division by the constant n
         # into a multiplication by its float32 reciprocal
         "completion_rate": completed * torch.tensor(
@@ -78,9 +89,9 @@ class FleetAxis:
 
 @dataclass(frozen=True)
 class WorkloadAxis:
-    """The task side: Poisson arrivals of ``n_tasks`` tasks at ``rate``.
-    ``arrivals`` names other arrival processes in the reference; only
-    None (Poisson everywhere) is ported."""
+    """The task side: ``n_tasks`` tasks at ``rate``.  ``arrivals`` names
+    ``workload.ARRIVAL_GENERATORS`` entries and makes the arrival process
+    a grid axis (None = Poisson everywhere)."""
     n_tasks: int
     n_task_types: int = 4
     rate: float = 4.0
@@ -88,9 +99,24 @@ class WorkloadAxis:
 
     def __post_init__(self):
         if self.arrivals is not None:
-            raise NotImplementedError(
-                "arrival-process axes are not ported yet (ROADMAP.md, "
-                "queue A item 5)")
+            object.__setattr__(self, "arrivals",
+                               resolve_arrivals(self.arrivals))
+
+
+@dataclass(frozen=True)
+class ScenarioAxis:
+    """Machine dynamics grid: failure rates x DVFS states.  Eviction
+    semantics is not a grid axis: each replica draws kill (spot) versus
+    requeue as a Bernoulli(``spot_frac``)."""
+    fail_rates: tuple[float, ...] = (0.0,)
+    dvfs_states: tuple[str, ...] = ("nominal",)
+    spot_frac: float = 0.0
+    mttr: float = 4.0
+    n_intervals: int = 4
+
+    def __post_init__(self):
+        object.__setattr__(self, "fail_rates", tuple(self.fail_rates))
+        object.__setattr__(self, "dvfs_states", tuple(self.dvfs_states))
 
 
 @dataclass(frozen=True)
@@ -109,11 +135,13 @@ class PolicyAxis:
 
 @dataclass(frozen=True)
 class ExperimentSpec:
-    """A flat experiment: replica r runs policy ``r % n_policies`` on its
-    own draw of EET table, power table, workload, noise and fleet."""
+    """One experiment: each replica draws its own EET table, power
+    table, workload, noise, fleet and, with a ``scenario`` axis, machine
+    dynamics; the grid cell of replica r follows the module docstring."""
     n_replicas: int
     fleet: FleetAxis
     workload: WorkloadAxis
+    scenario: ScenarioAxis | None = None
     policy: PolicyAxis = field(default_factory=PolicyAxis)
     sim: E.SimParams = field(default_factory=E.SimParams)
     seed: int = 0
@@ -131,6 +159,7 @@ class Replicas:
     mtype: torch.Tensor        # i32 (R, M)
     tables: S.StaticTables
     policy_ids: torch.Tensor   # i32 (R,)
+    dynamics: S.MachineDynamics | None = None
 
     @property
     def n_replicas(self) -> int:
@@ -144,27 +173,59 @@ def _draw_power(rng, n_machine_types: int) -> np.ndarray:
                     axis=1).astype(np.float32)
 
 
+def _draw_workload(spec: ExperimentSpec, eet, r: int):
+    """Arrival-process draw of replica ``r``; ``arrivals=None`` is the
+    direct Poisson call (equal to the registered "poisson" one)."""
+    wk, sc, n_p = spec.workload, spec.scenario, len(spec.policy.policies)
+    seed = spec.seed + 7919 * r
+    if wk.arrivals is None:
+        return poisson_workload(wk.n_tasks, rate=wk.rate,
+                                n_task_types=wk.n_task_types,
+                                mean_eet=eet.eet.mean(1), slack=4.0,
+                                seed=seed)
+    if sc is not None:
+        idx = (r // (len(sc.fail_rates) * len(sc.dvfs_states) * n_p)) \
+            % len(wk.arrivals)
+    else:
+        idx = (r // n_p) % len(wk.arrivals)
+    gen = ARRIVAL_GENERATORS[wk.arrivals[idx]]
+    return gen(wk.n_tasks, wk.rate, wk.n_task_types, eet.eet.mean(1), seed)
+
+
 def _draw_flat_replica(spec: ExperimentSpec, r: int) -> dict:
     """One replica, fully determined by ``(spec, r)``: the draws (power,
-    noise, mtype — in that order) come from ``default_rng([seed, r])``,
-    the EET table and the workload from their own seeds, exactly as the
-    reference draws them."""
-    wk, fl = spec.workload, spec.fleet
+    [spot], noise, mtype — in that order) come from
+    ``default_rng([seed, r])``, the EET table, the workload and the
+    failure trace from their own seeds, exactly as the reference draws
+    them."""
+    wk, fl, sc = spec.workload, spec.fleet, spec.scenario
     policies = spec.policy.policies
+    n_p = len(policies)
     rng = np.random.default_rng([spec.seed, r])
     eet = synth_eet(wk.n_task_types, fl.n_machine_types, inconsistency=0.3,
                     seed=spec.seed + r)
     power = _draw_power(rng, fl.n_machine_types)
-    wl = poisson_workload(wk.n_tasks, rate=wk.rate,
-                          n_task_types=wk.n_task_types,
-                          mean_eet=eet.eet.mean(1), slack=4.0,
-                          seed=spec.seed + 7919 * r)
+    wl = _draw_workload(spec, eet, r)
+    out = {}
+    if sc is not None:
+        n_f, n_d = len(sc.fail_rates), len(sc.dvfs_states)
+        scen = make_scenario(
+            wl, fl.n_machines, fail_rate=sc.fail_rates[r % n_f],
+            mttr=sc.mttr, spot=(rng.random() < sc.spot_frac),
+            dvfs=sc.dvfs_states[(r // n_f) % n_d],
+            n_intervals=sc.n_intervals, seed=spec.seed + 31 * r)
+        out.update(speed=scen.speed, power_scale=scen.power_scale,
+                   down_start=scen.down_start, down_end=scen.down_end,
+                   kill=scen.kill)
+        pol = policies[(r // (n_f * n_d)) % n_p]
+    else:
+        pol = policies[r % n_p]
     noise = rng.lognormal(0.0, 0.1, wk.n_tasks).astype(np.float32)
     mt = rng.integers(0, fl.n_machine_types, fl.n_machines)
-    return {"arrival": wl.arrival, "type_id": wl.type_id,
-            "deadline": wl.deadline, "eet": eet.eet, "power": power,
-            "noise": noise, "mtype": mt,
-            "policy": P.POLICY_IDS[policies[r % len(policies)]]}
+    out.update(arrival=wl.arrival, type_id=wl.type_id,
+               deadline=wl.deadline, eet=eet.eet, power=power, noise=noise,
+               mtype=mt, policy=P.POLICY_IDS[pol])
+    return out
 
 
 def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
@@ -189,9 +250,17 @@ def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
         noise=put("noise", np.float32, torch.float32),
         rank=torch.zeros((spec.n_replicas, n), dtype=torch.float32,
                          device=dev))
+    dyn = None
+    if spec.scenario is not None:
+        dyn = S.MachineDynamics(
+            speed=put("speed", np.float32, torch.float32),
+            power_scale=put("power_scale", np.float32, torch.float32),
+            down_start=put("down_start", np.float32, torch.float32),
+            down_end=put("down_end", np.float32, torch.float32),
+            kill=put("kill", bool, torch.bool))
     return Replicas(tasks, put("mtype", np.int32, torch.int32), tables,
                     torch.as_tensor([d["policy"] for d in draws],
-                                    dtype=torch.int32, device=dev))
+                                    dtype=torch.int32, device=dev), dyn)
 
 
 @dataclass
@@ -229,6 +298,6 @@ def run_experiment(spec: ExperimentSpec, *, device="cuda",
     dev = resolve_device(device)
     reps = replicas if replicas is not None else normalize(spec, dev)
     st = E.run_sweep(reps.tasks, reps.mtype, reps.tables, reps.policy_ids,
-                     spec.sim, stats)
-    return ExperimentResult(spec, reps, summarize_replica(st, reps.tables),
-                            st)
+                     spec.sim, stats, reps.dynamics)
+    return ExperimentResult(
+        spec, reps, summarize_replica(st, reps.tables, reps.dynamics), st)

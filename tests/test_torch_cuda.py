@@ -21,6 +21,9 @@ from repro_torch.kernels import sched_argmin as TK
 
 pytestmark = [pytest.mark.torch, pytest.mark.cuda]
 
+POLICIES = ("fcfs", "rr", "met", "mct", "ee_met", "ee_mct", "minmin",
+            "maxmin", "edf_mct", "heft")
+
 
 @pytest.fixture
 def cuda_device():
@@ -53,7 +56,7 @@ def _cases(name: str) -> dict:
             "valid >= BIG": (np.full(s, 2e30, f32), one_masked),
             "-0.0/+0.0": (z, np.ones(s, bool))})
         return {k: (v, {}) for k, v in cases.items()}
-    if name == "fused_minmin":
+    if name in ("fused_minmin", "fused_maxmin"):
         def inst(r, n, m, t):
             return ((rng.integers(0, 20, (r, m))).astype(f32),
                     rng.random((r, n)) < 0.5, rng.random((r, m)) < 0.7,
@@ -67,9 +70,26 @@ def _cases(name: str) -> dict:
         cases.update({
             "empty batch": (a, np.zeros_like(ib), rm, tid, e),
             "no room": (a, ib, np.zeros_like(rm), tid, e),
+            "all ties": (np.zeros_like(a), np.ones_like(ib),
+                         np.ones_like(rm), tid, np.ones_like(e)),
             ">= BIG and +inf": (a, ib, rm, tid, big),
             "-0.0/+0.0": (np.full_like(a, -0.0), ib, rm, tid,
                           np.zeros_like(e))})
+        if name == "fused_maxmin":
+            signed = np.zeros_like(e)
+            signed[..., ::2] = -0.0
+            one_b, one_r = np.zeros_like(ib), np.zeros_like(rm)
+            one_b[:, 5], one_r[:, 2] = True, True
+            mixed_b, mixed_r = ib.copy(), rm.copy()
+            mixed_b[0], mixed_r[1], mixed_r[2] = False, False, True
+            cases.update({
+                "-0.0 row minima": (np.full_like(a, -0.0), ib,
+                                    np.ones_like(rm), tid, signed),
+                "one valid pair": (a, one_b, one_r, tid, e),
+                "mixed empty and full replicas": (a, mixed_b, mixed_r, tid,
+                                                  e),
+                "scores below -BIG": (np.full_like(a, -np.inf), ib, rm, tid,
+                                      e)})
         return {k: (v, {}) for k, v in cases.items()}
     if name == "fused_start_pick":
         cases = {}
@@ -122,16 +142,29 @@ def test_cuda_wrappers_reject_wrong_dtypes(cuda_device):
 
 
 def test_cuda_default_path_launches_every_kernel(cuda_device):
-    """``run_experiment`` with default settings goes through all four
+    """``run_experiment`` with default settings goes through all five
     kernels on the card and matches the CPU run bit for bit."""
     from repro_torch.launch import experiment as TX
-    spec = TX.ExperimentSpec(18, TX.FleetAxis(4), TX.WorkloadAxis(48),
-                             policy=TX.PolicyAxis(("fcfs", "rr", "met", "mct",
-                                                   "ee_met", "ee_mct",
-                                                   "minmin", "edf_mct",
-                                                   "heft")), seed=5)
+    spec = TX.ExperimentSpec(20, TX.FleetAxis(4), TX.WorkloadAxis(48),
+                             policy=TX.PolicyAxis(POLICIES), seed=5)
+    _launches_all_and_matches_cpu(TX, spec, cuda_device)
+
+
+def test_cuda_scenario_path_launches_every_kernel(cuda_device):
+    """The same with a ``ScenarioAxis``: failures, spot kills, DVFS."""
+    from repro_torch.launch import experiment as TX
+    spec = TX.ExperimentSpec(
+        40, TX.FleetAxis(4), TX.WorkloadAxis(48),
+        scenario=TX.ScenarioAxis(fail_rates=(0.0, 0.3),
+                                 dvfs_states=("powersave", "turbo"),
+                                 spot_frac=0.5),
+        policy=TX.PolicyAxis(POLICIES), seed=5)
+    _launches_all_and_matches_cpu(TX, spec, cuda_device)
+
+
+def _launches_all_and_matches_cpu(TX, spec, dev):
     TK.reset_launches()
-    on_card = TX.run_experiment(spec, device=cuda_device)
+    on_card = TX.run_experiment(spec, device=dev)
     torch.cuda.synchronize()
     assert all(TK.launches[name] > 0 for name in TK.NAMES), TK.launches
     on_cpu = TX.run_experiment(spec, device="cpu")

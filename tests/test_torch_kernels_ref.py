@@ -5,7 +5,8 @@ over replicas; every replica's result must equal, bit for bit (tolerance
 0), both the reference's jnp oracle (``repro/kernels/ref.py``) and its
 Pallas kernel run in interpret mode, as ``tests/test_kernels_differential
 .py`` runs it — on random inputs, ragged task counts, N=1, ties, -0.0/+0.0,
-+inf, valid cells >= 1e30 and empty masks.  The kernel wrappers take the
++inf, valid cells >= 1e30, empty masks and, for Max-Min, one valid pair
+and a batch mixing empty and full replicas.  The kernel wrappers take the
 plain path for CPU tensors.
 
 The CUDA kernels themselves run only on a card: ``test_torch_cuda.py``
@@ -96,6 +97,31 @@ def _fused_inputs():
     return cases
 
 
+def _maxmin_inputs():
+    """The Min-Min cases, plus the cases only Max-Min's two-level
+    reduction reaches."""
+    cases = dict(FUSED)
+    rng = np.random.default_rng(4)
+    avail, inb, room, tid, eet = cases["random 3x24x4"]
+    one_b = np.zeros_like(inb)
+    one_b[:, 5] = True
+    one_r = np.zeros_like(room)
+    one_r[:, 2] = True
+    cases["one valid pair"] = (avail, one_b, one_r, tid, eet)
+    mixed_b, mixed_r = inb.copy(), room.copy()
+    mixed_b[0] = False                   # replica 0: empty batch
+    mixed_r[1] = False                   # replica 1: no room
+    mixed_r[2] = True                    # replica 2: every machine
+    cases["mixed empty and full replicas"] = (avail, mixed_b, mixed_r, tid,
+                                              eet)
+    cases["tied row minima"] = (
+        np.zeros_like(avail), rng.random(inb.shape) < 0.7, room, tid,
+        np.tile(np.arange(1, 5, dtype=np.float32), (3, 3, 1)))
+    cases["scores below -BIG"] = (np.full_like(avail, -np.inf), inb, room,
+                                  tid, eet)
+    return cases
+
+
 def _pick_inputs():
     rng = np.random.default_rng(2)
     cases = {}
@@ -135,6 +161,7 @@ def _bounds_inputs():
 
 ARGMIN = _argmin_inputs()
 FUSED = _fused_inputs()
+MAXMIN = _maxmin_inputs()
 PICK = _pick_inputs()
 BOUNDS = _bounds_inputs()
 EB_KW = {"not_arrived": 0, "live_lo": 1, "live_hi": 3}
@@ -164,6 +191,39 @@ def test_fused_minmin_matches_reference(case):
         *a, block_n=BN, interpret=True))(*args)
     _same([g.numpy() for g in got], oracle, f"oracle {case}")
     _same([g.numpy() for g in got], pallas, f"pallas {case}")
+
+
+@pytest.mark.parametrize("case", list(MAXMIN))
+def test_fused_maxmin_matches_reference(case):
+    args = MAXMIN[case]
+    got = TK.fused_maxmin(*map(_t, args))
+    assert [g.dtype for g in got] == [torch.int32, torch.int32,
+                                      torch.float32]
+    oracle = jax.vmap(JREF.fused_maxmin_ref)(*args)
+    pallas = jax.vmap(lambda *a: JK.fused_maxmin(
+        *a, block_n=BN, interpret=True))(*args)
+    _same([g.numpy() for g in got], oracle, f"oracle {case}")
+    _same([g.numpy() for g in got], pallas, f"pallas {case}")
+
+
+def test_reference_maxmin_signed_zero_fault():
+    """Queue C fault, on the reference side: on a row whose completions
+    mix -0.0 and +0.0 (avail -0.0, EET entries of both signs; the engine
+    never produces such rows, its completions are positive), the Pallas
+    ``fused_maxmin`` in interpret mode returns the row minimum +0.0 where
+    its jnp oracle returns -0.0, as XLA's ``min`` orders -0.0 below
+    +0.0.  The port follows the oracle."""
+    eet = np.zeros((1, 1, 4), np.float32)
+    eet[..., ::2] = -0.0
+    args = (np.full((1, 4), -0.0, np.float32), np.ones((1, 3), bool),
+            np.ones((1, 4), bool), np.zeros((1, 3), np.int32), eet)
+    oracle = jax.vmap(JREF.fused_maxmin_ref)(*args)
+    pallas = jax.vmap(lambda *a: JK.fused_maxmin(
+        *a, block_n=BN, interpret=True))(*args)
+    assert np.signbit(np.asarray(oracle[2])).all()
+    assert not np.signbit(np.asarray(pallas[2])).any()
+    got = TK.fused_maxmin(*map(_t, args))
+    _same([g.numpy() for g in got], oracle, "oracle")
 
 
 @pytest.mark.parametrize("case", list(PICK))
@@ -196,6 +256,7 @@ def test_fused_event_bounds_matches_reference(case):
 CPU_CALLS = {
     "masked_argmin": (ARGMIN["random 4x24x4"], {}),
     "fused_minmin": (FUSED["random 3x24x4"], {}),
+    "fused_maxmin": (MAXMIN["mixed empty and full replicas"], {}),
     "fused_start_pick": (PICK["random 2x301x5"], {"in_mq": 2}),
     "fused_event_bounds": (BOUNDS["random 2x301"], EB_KW),
 }
