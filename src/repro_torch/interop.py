@@ -4,9 +4,11 @@
 table, the machine types, the static tables, the policy ids and, for a
 dynamic fleet, the machine dynamics, each with a leading replica axis —
 into the port's tensors, so both engines compute on the same data;
-``dynamics_from_numpy`` converts the dynamics alone.  Both read their
-inputs through ``numpy.asarray`` and attribute access only, so they
-import nothing of the JAX package.
+``dynamics_from_numpy`` converts the dynamics alone;
+``lm_params_from_numpy`` turns a language model's parameter tree into the
+port's parameters.  All read their inputs through ``numpy.asarray``,
+attribute and key access only, so they import nothing of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch import resolve_device
 from repro_torch.core import state as S
 from repro_torch.core.workload import task_table
 from repro_torch.launch.experiment import Replicas
+from repro_torch.models.model import layout
 
 
 def dynamics_from_numpy(dynamics, device="cuda") -> S.MachineDynamics:
@@ -61,3 +64,33 @@ def replicas_from_numpy(tasks, mtype, tables, policy_ids, dynamics=None,
                        noise=f32(tables.noise), rank=f32(tables.rank)),
         put(policy_ids, np.int32, torch.int32),
         None if dynamics is None else dynamics_from_numpy(dynamics, dev))
+
+
+def lm_params_from_numpy(tree, cfg, device="cuda") -> dict:
+    """The reference's ``init_params`` tree (dicts and lists with array
+    leaves of any kind ``numpy.asarray`` reads; each cycle slot's
+    parameters stacked on a leading layer axis for ``lax.scan``) as the
+    port's parameters (``models/model.py``: the same keys, each cycle
+    slot a list over cycles), on ``device`` in f32."""
+    dev = resolve_device(device)
+
+    def conv(node, index=None):
+        if isinstance(node, dict):
+            return {k: conv(v, index) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v, index) for v in node]
+        a = np.asarray(node, np.float32)
+        if index is not None:
+            a = a[index]
+        return torch.as_tensor(a.copy(), device=dev)
+
+    stack = tree["stack"]
+    out = {k: conv(v) for k, v in tree.items() if k != "stack"}
+    n_cycles = layout(cfg).n_cycles
+    out["stack"] = {
+        "prefix": conv(stack["prefix"]),
+        "cycle": [[conv(slot, c) for c in range(n_cycles)]
+                  for slot in stack["cycle"]],
+        "suffix": conv(stack["suffix"]),
+    }
+    return out

@@ -7,8 +7,12 @@ JAX package, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
         tests/test_torch_cuda.py
 
-Tolerance 0: indices, flags and the bits of every float (-0.0 and +0.0
-differ) must be equal.
+Tolerance 0 for the scheduling kernels: indices, flags and the bits of
+every float (-0.0 and +0.0 differ) must be equal.  The model kernels
+(flash attention, grouped matmul) sum in another order than their plain
+versions: atol = rtol = 2e-5 (f32) and 2e-2 (bf16) for flash attention,
+atol = 2e-5 * D and rtol = 2e-5 (f32), 2e-2 * D and 2e-2 (bf16) for the
+grouped matmul, whose padding rows must be exactly 0.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as TFA
+from repro_torch.kernels import grouped_matmul as TGMM
 from repro_torch.kernels import ref as TREF
 from repro_torch.kernels import sched_argmin as TK
 
@@ -170,3 +176,96 @@ def _launches_all_and_matches_cpu(TX, spec, dev):
     on_cpu = TX.run_experiment(spec, device="cpu")
     for key, col in on_cpu.metrics.items():
         assert torch.equal(_bits(on_card.metrics[key]), _bits(col)), key
+
+
+MODEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
+    g = torch.Generator().manual_seed(0)
+    for bh, sq, sk, hd, kw in (
+            (3, 128, 128, 64, {"causal": True}),
+            (3, 130, 130, 128, {"causal": True}),
+            (2, 64, 256, 128, {"causal": False}),
+            (3, 37, 53, 16, {"causal": True}),
+            (2, 256, 256, 256, {"causal": True}),
+            (2, 192, 192, 32, {"causal": True, "window": 64}),
+            (2, 64, 64, 32, {"causal": True, "softcap": 20.0}),
+            (2, 96, 32, 32, {"causal": True, "window": 16})):
+        q, k, v = (torch.randn(bh, s, hd, generator=g).to(cuda_device, dtype)
+                   for s in (sq, sk, sk))
+        before = TFA.launches["flash_attention"]
+        got = TFA.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert TFA.launches["flash_attention"] == before + 1
+        want = TFA.flash_attention_ref(q, k, v, **kw)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=MODEL_TOL[dtype],
+                                   rtol=MODEL_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_grouped_matmul_matches_plain(cuda_device, dtype):
+    g = torch.Generator().manual_seed(1)
+    for gr, c, d, f, sizes in (
+            (4, 40, 96, 72, [0, 13, 40, 1]),
+            (8, 128, 64, 128, [128, 0, 64, 65, 1, 127, 3, 0]),
+            (3, 33, 48, 40, [33, 0, 17]),
+            (6, 8, 2048, 200, [1, 0, 0, 1, 0, 1]),
+            (4, 32, 16, 24, [0, 0, 0, 0])):
+        lhs = torch.randn(gr, c, d, generator=g).to(cuda_device, dtype)
+        rhs = torch.randn(gr, d, f, generator=g).to(cuda_device, dtype)
+        sz = torch.tensor(sizes, dtype=torch.int32, device=cuda_device)
+        got = TGMM.grouped_matmul(lhs, rhs, sz)
+        torch.cuda.synchronize()
+        want = TGMM.grouped_matmul_ref(lhs, rhs, sz)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=MODEL_TOL[dtype] * d,
+                                   rtol=MODEL_TOL[dtype])
+        pad = torch.arange(c, device=cuda_device)[None, :] >= sz[:, None]
+        assert bool((got[pad] == 0).all())
+
+
+def test_cuda_model_wrappers_reject_wrong_dtypes(cuda_device):
+    q = torch.zeros((2, 8, 16), dtype=torch.float16, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        TFA.flash_attention(q, q, q)
+    lhs = torch.zeros((2, 4, 8), dtype=torch.float64, device=cuda_device)
+    rhs = torch.zeros((2, 8, 3), dtype=torch.float64, device=cuda_device)
+    sizes = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or both bfloat16"):
+        TGMM.grouped_matmul(lhs, rhs, sizes)
+
+
+def test_cuda_tiny_serving_launches_both_model_kernels(cuda_device):
+    """A real-mode ``ServingEngine`` run with tiny qwen2-1.5b and tiny
+    deepseek-moe-16b on the card prefills through flash attention and
+    runs the MoE FFN through the grouped matmul."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.workload import poisson_workload
+    from repro_torch.models import model as TM
+    from repro_torch.serving import AppSpec, ServeConfig, ServingEngine
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    cfgs = [get_arch(a).tiny() for a in ("qwen2-1.5b", "deepseek-moe-16b")]
+    apps = [AppSpec(c.name, gen_len=4, arch=c,
+                    params=TM.init_params(gen, c), prompt_len=8)
+            for c in cfgs]
+    eng = ServingEngine(np.array([[0.3, 0.6], [0.5, 0.4]], np.float32),
+                        np.array([[50., 200.], [30., 120.]], np.float32),
+                        [0, 1], apps, ServeConfig(policy="mct",
+                                                  run_mode="real"),
+                        device=cuda_device)
+    wl = poisson_workload(5, rate=1.0, n_task_types=2, slack=10.0, seed=3)
+    TFA.reset_launches()
+    TGMM.reset_launches()
+    rep = eng.run(wl)
+    n = np.bincount(wl.type_id, minlength=2)
+    assert rep.completed == 5
+    assert TFA.launches["flash_attention"] == n[0] * cfgs[0].n_layers \
+        + n[1] * cfgs[1].n_layers
+    n_moe = cfgs[1].kinds().count("moe")
+    assert TGMM.launches["grouped_matmul"] == n[1] * 2 * n_moe * (1 + 4)

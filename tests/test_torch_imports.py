@@ -40,7 +40,17 @@ def test_port_imports_no_jax_and_no_reference():
     for name in ("repro_torch.core.engine", "repro_torch.core.schedulers",
                  "repro_torch.kernels.sched_argmin",
                  "repro_torch.kernels.build", "repro_torch.interop",
-                 "repro_torch.launch.experiment"):
+                 "repro_torch.launch.experiment",
+                 "repro_torch.configs.base",
+                 "repro_torch.configs.qwen2_1_5b",
+                 "repro_torch.configs.deepseek_moe_16b",
+                 "repro_torch.models.layers", "repro_torch.models.attention",
+                 "repro_torch.models.transformer", "repro_torch.models.moe",
+                 "repro_torch.models.model",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.grouped_matmul",
+                 "repro_torch.core.ref_engine", "repro_torch.core.metrics",
+                 "repro_torch.serving", "repro_torch.serving.engine"):
         assert name in result["modules"]
 
 
