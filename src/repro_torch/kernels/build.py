@@ -12,8 +12,9 @@ Each source is its own library with its own flags:
   which is both faster and one rounding closer to the exact product.
 
 A library goes to ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is loaded as is.  ``build_all``
+``.gitignore``), named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and its flags, so an edited source is rebuilt and an
+unchanged one is loaded as is.  ``build_all``
 starts one ``nvcc`` per missing library, all together, and waits for them.
 Every pointer and the stream cross the boundary as ``c_void_p``; each
 launcher returns the ``cudaGetLastError()`` code of its launch.
@@ -63,9 +64,13 @@ LIBRARIES = {
     "grouped_matmul": {
         "flags": COMMON_FLAGS,
         "signatures": {
-            # lhs, rhs, sizes, out, g, c, d, f, bf16, stream
-            "e2c_grouped_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+            # lhs, rhs, sizes, out, scratch, g, c, d, f, bf16, stream
+            "e2c_grouped_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P),
+            # g, c, d, f -> floats of scratch (long long)
+            "e2c_grouped_matmul_scratch": (_I, _I, _I, _I),
         },
+        "restypes": {"e2c_grouped_matmul_scratch": ctypes.c_longlong},
     },
 }
 
@@ -92,6 +97,8 @@ def source(name: str) -> Path:
 
 def library_path(name: str = "sched_argmin") -> Path:
     digest = hashlib.sha256(source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(LIBRARIES[name]["flags"]).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
@@ -136,10 +143,11 @@ def load(name: str = "sched_argmin") -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build_all((name,))[name]))
+        restypes = LIBRARIES[name].get("restypes", {})
         for fn_name, argtypes in LIBRARIES[name]["signatures"].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = restypes.get(fn_name, ctypes.c_int)
         lib.e2c_error_string.argtypes = [ctypes.c_int]
         lib.e2c_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

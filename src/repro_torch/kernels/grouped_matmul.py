@@ -4,9 +4,11 @@ Replaces the Pallas kernel of ``repro/kernels/grouped_matmul.py``
 (``grouped_matmul`` :50, body ``_gmm_kernel`` :29), with the signature of
 ``repro/kernels/ops.py::grouped_matmul``: lhs (G, C, D) x rhs (G, D, F)
 with group sizes (G,) -> (G, C, F), rows at or past ``group_sizes[g]``
-exactly 0.  It is the expert FFN of ``models/moe.py``.  The kernel lives
-in ``csrc/grouped_matmul.cu``; its header says what bounds it and how a
-tile of padding rows costs no loads.
+exactly 0.  It is the expert FFN of ``models/moe.py``.  The kernels live
+in ``csrc/grouped_matmul.cu``; its header says what bounds them, how a
+tile of padding rows costs no loads, and how the shapes alone choose
+between the tiled kernel and the split-D decode kernel, whose partial
+sums go to a scratch buffer allocated here.
 
 A tensor on the CPU goes to ``grouped_matmul_ref``, the masked einsum of
 ``repro/kernels/ref.py::grouped_matmul_ref``; a CUDA tensor launches the
@@ -84,9 +86,13 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
     sizes = group_sizes.to(torch.int32).contiguous()
     out = torch.empty((g, c, f), dtype=lhs.dtype, device=lhs.device)
     if out.numel():
-        build.check(build.load("grouped_matmul").e2c_grouped_matmul(
+        lib = build.load("grouped_matmul")
+        # partial sums of the split-D decode kernel (none for the tiled one)
+        scratch = torch.empty(lib.e2c_grouped_matmul_scratch(g, c, d, f),
+                              dtype=torch.float32, device=lhs.device)
+        build.check(lib.e2c_grouped_matmul(
             lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(), out.data_ptr(),
-            g, c, d, f, int(lhs.dtype == torch.bfloat16),
+            scratch.data_ptr(), g, c, d, f, int(lhs.dtype == torch.bfloat16),
             torch.cuda.current_stream(lhs.device).cuda_stream),
             "grouped_matmul", "grouped_matmul")
         launches["grouped_matmul"] += 1

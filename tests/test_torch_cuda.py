@@ -12,7 +12,9 @@ every float (-0.0 and +0.0 differ) must be equal.  The model kernels
 (flash attention, grouped matmul) sum in another order than their plain
 versions: atol = rtol = 2e-5 (f32) and 2e-2 (bf16) for flash attention,
 atol = 2e-5 * D and rtol = 2e-5 (f32), 2e-2 * D and 2e-2 (bf16) for the
-grouped matmul, whose padding rows must be exactly 0.
+grouped matmul, whose padding rows must be exactly 0.  Each model-kernel
+case is launched twice and the two results must be equal bit for bit:
+no sum depends on the order in which blocks finish.
 """
 from __future__ import annotations
 
@@ -181,6 +183,11 @@ def _launches_all_and_matches_cpu(TX, spec, dev):
 MODEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    width = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return torch.equal(a.view(width), b.view(width))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
@@ -193,13 +200,30 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
             (2, 256, 256, 256, {"causal": True}),
             (2, 192, 192, 32, {"causal": True, "window": 64}),
             (2, 64, 64, 32, {"causal": True, "softcap": 20.0}),
-            (2, 96, 32, 32, {"causal": True, "window": 16})):
+            # softcap at the widths tests/test_torch_tf32_split.py emulates
+            (1, 512, 512, 128, {"causal": True, "softcap": 30.0}),
+            (1, 384, 384, 256, {"causal": False, "window": 100,
+                                "softcap": 20.0}),
+            (2, 96, 32, 32, {"causal": True, "window": 16}),
+            # the key-stage edges: below one stage, 2 stages + 1 key for
+            # the f32 stages of 64 (hd <= 128) and 16 (hd 256) keys and
+            # the bf16 ones of 128; ragged S; hd 256
+            (2, 64, 10, 128, {"causal": False}),
+            (2, 96, 129, 128, {"causal": False}),
+            (2, 80, 129, 64, {"causal": False}),
+            (2, 96, 257, 128, {"causal": False}),
+            (2, 80, 33, 256, {"causal": False}),
+            (2, 1000, 1000, 128, {"causal": True}),
+            (2, 300, 300, 256, {"causal": True}),
+            (2, 50, 50, 37, {"causal": True})):   # no 16-byte copies
         q, k, v = (torch.randn(bh, s, hd, generator=g).to(cuda_device, dtype)
                    for s in (sq, sk, sk))
         before = TFA.launches["flash_attention"]
         got = TFA.flash_attention(q, k, v, **kw)
+        again = TFA.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        assert TFA.launches["flash_attention"] == before + 1
+        assert TFA.launches["flash_attention"] == before + 2
+        assert _same_bits(got, again), (bh, sq, sk, hd, kw)
         want = TFA.flash_attention_ref(q, k, v, **kw)
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(),
@@ -211,17 +235,36 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
                          ids=["f32", "bf16"])
 def test_cuda_grouped_matmul_matches_plain(cuda_device, dtype):
     g = torch.Generator().manual_seed(1)
+    six_live = [1 if i % 11 == 0 else 0 for i in range(64)]
     for gr, c, d, f, sizes in (
             (4, 40, 96, 72, [0, 13, 40, 1]),
             (8, 128, 64, 128, [128, 0, 64, 65, 1, 127, 3, 0]),
             (3, 33, 48, 40, [33, 0, 17]),
             (6, 8, 2048, 200, [1, 0, 0, 1, 0, 1]),
-            (4, 32, 16, 24, [0, 0, 0, 0])):
+            (4, 32, 16, 24, [0, 0, 0, 0]),
+            # either side of the decode/tiled switch (C <= 16 is decode)
+            (8, 16, 256, 384, [16, 0, 5, 1, 9, 16, 0, 2]),
+            (8, 17, 256, 384, [17, 0, 5, 1, 9, 16, 0, 2]),
+            # rows that are not 16-byte multiples, both kernels
+            (3, 7, 21, 13, [7, 1, 0]),
+            (3, 20, 21, 13, [20, 1, 0]),
+            # f32 warpgroup products: a second row tile, a warpgroup of
+            # padding rows (64 live), depth and columns past the last
+            # slice and tile
+            (3, 200, 36, 34, [200, 70, 64]),
+            # deepseek-moe-16b's decode calls (w_in, w_out), one token
+            # routed to 6 experts, and no token at all
+            (64, 8, 2048, 2816, six_live),
+            (64, 8, 2048, 2816, [0] * 64),
+            (64, 8, 1408, 2048, six_live),
+            (64, 8, 1408, 2048, [0] * 64)):
         lhs = torch.randn(gr, c, d, generator=g).to(cuda_device, dtype)
         rhs = torch.randn(gr, d, f, generator=g).to(cuda_device, dtype)
         sz = torch.tensor(sizes, dtype=torch.int32, device=cuda_device)
         got = TGMM.grouped_matmul(lhs, rhs, sz)
+        again = TGMM.grouped_matmul(lhs, rhs, sz)
         torch.cuda.synchronize()
+        assert _same_bits(got, again), (gr, c, d, f)
         want = TGMM.grouped_matmul_ref(lhs, rhs, sz)
         torch.testing.assert_close(got.float(), want.float(),
                                    atol=MODEL_TOL[dtype] * d,
