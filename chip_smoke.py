@@ -4,13 +4,17 @@
 
     python3 chip_smoke.py --paths serve --serve-tiny   # short first call
     python3 chip_smoke.py --replicas 512 --flat-replicas 512   # short
+    python3 chip_smoke.py --paths flat,scenario --src DIR  # another
+                                     # checkout's port, this script's timings
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
   2. build: nvcc builds the three CUDA libraries from
      ``src/repro_torch/kernels/csrc``, one nvcc each, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card:
-     the five scheduling kernels bitwise, on random and edge-case inputs;
+     the five scheduling kernels bitwise, on random and edge-case inputs
+     (both layouts of ``masked_argmin`` and ``fused_maxmin``), each case
+     launched twice and the two results bitwise equal;
      flash attention at atol = rtol = 2e-5 (f32) / 2e-2 (bf16) and the
      grouped matmul at atol = 2e-5 D, rtol = 2e-5 (f32) / 2e-2 D, 2e-2
      (bf16) with its padding rows exactly 0 (the tolerances of
@@ -44,7 +48,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      captured main-path call with the most work, rotated over copies
      larger than the L2 cache: device time (profiler) and stream time
      (CUDA events), beside the least time the card could take for that
-     call's data (see ``bound`` and ``model_bound``).
+     call's data (see ``bound`` and ``model_bound``); for the scheduling
+     kernels also the host time per call of each wrapper (5 rounds of 1000
+     calls, no synchronisation) and the launch floor: an empty kernel at
+     the kernel's grid, timed the same ways.
 After 4 a profiled window of each path (the sweeps' first 32 event
 steps; one request of each app) gives the device's busy and idle share.
 The last two lines are the kernels JSON line and the result line.
@@ -142,11 +149,19 @@ def kernel_cases(dev):
                              dtype=torch.int32).to(dev)
 
     cases = []
-    # masked_argmin: (R, N, M) values + mask
-    for r, n, m in ((4096, 1, 32), (64, 1024, 32), (7, 33, 5), (3, 1, 1)):
+    # masked_argmin: (R, N, M) values + mask; the engine's (R, 1, M) rows
+    # and len = N*M either side of the warp/CTA threshold (1024), with
+    # and without len % 4 == 0
+    for r, n, m in ((4096, 1, 32), (64, 1024, 32), (7, 33, 5), (3, 1, 1),
+                    (6, 1, 30), (5, 1, 1023), (5, 32, 32), (5, 1, 1025),
+                    (3, 64, 33)):
         v = (rnd(r, n, m) * 8).floor() * 0.5      # many duplicate minima
         cases.append(("masked_argmin", f"random {r}x{n}x{m}",
                       (v, rnd(r, n, m) < 0.6), {}))
+    flat = (rnd(64 * 32 + 1) * 8).floor() * 0.5
+    cases.append(("masked_argmin", "rows off a 16-byte boundary",
+                  (flat[1:].view(64, 1, 32),
+                   (rnd(64 * 32 + 1) < 0.6)[1:].view(64, 1, 32)), {}))
     v = rnd(5, 9, 4)
     cases.append(("masked_argmin", "empty mask",
                   (v, torch.zeros_like(v, dtype=torch.bool)), {}))
@@ -157,6 +172,8 @@ def kernel_cases(dev):
                   (v, mk), {}))
     cases.append(("masked_argmin", "valid cells >= BIG",
                   (torch.full((5, 9, 4), 2e30, device=dev), mk), {}))
+    cases.append(("masked_argmin", "all cells +inf, none masked",
+                  (v, torch.ones_like(mk)), {}))
     z = torch.zeros((6, 11, 3), device=dev)
     z[:, ::2] = -0.0
     cases.append(("masked_argmin", "-0.0/+0.0 ties",
@@ -208,6 +225,16 @@ def kernel_cases(dev):
     cases.append(("fused_maxmin", "scores below -BIG",
                   (torch.full((r, m), float("-inf"), device=dev), base[1],
                    base[2], base[3], base[4]), {}))
+    # either side of the per-type / per-task choice: M past one warp, T =
+    # 1, T = 64, T > N, a type table past 48 KB, N % 4 != 0, and the
+    # captured main-path call
+    for r, n, m, t in ((6, 40, 33, 3), (6, 40, 64, 5), (6, 40, 6, 1),
+                       (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6145),
+                       (4, 1001, 33, 3), (409, 1024, 32, 4)):
+        cases.append(("fused_maxmin", f"random {r}x{n}x{m}x{t}",
+                      ((rnd(r, m) * 20).floor(), rnd(r, n) < 0.5,
+                       rnd(r, m) < 0.7, randint(0, t, r, n),
+                       (rnd(r, t, m) * 9).floor() + 0.5), {}))
     # fused_start_pick
     for r, n, m in ((4096, 1024, 32), (5, 1000, 7), (3, 1, 1)):
         cases.append(("fused_start_pick", f"random {r}x{n}x{m}",
@@ -249,10 +276,12 @@ def check_kernels(K, KREF, dev) -> dict:
     errs = {name: 0.0 for name in K.NAMES}
     for name, label, args, kw in kernel_cases(dev):
         got = getattr(K, name)(*args, **kw)
+        again = getattr(K, name)(*args, **kw)
         torch.cuda.synchronize()
         want = getattr(KREF, name + "_ref")(*args, **kw)
         errs[name] = max(errs[name], compare(f"{name} {label}", got, want))
-        log("3 kernels", f"{name} {label}: bitwise equal")
+        compare(f"{name} {label}, second launch", again, got)
+        log("3 kernels", f"{name} {label}: bitwise equal, twice")
     return errs
 
 
@@ -429,6 +458,24 @@ def time_ms(fn, sets, kw) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, args, kw, calls: int = 1000, rounds: int = 5) -> list:
+    """Host time per wrapper call, in us, for each of ``rounds`` rounds:
+    ``time.perf_counter`` around ``calls`` back-to-back calls on the same
+    inputs, no synchronisation inside the loop (the device keeps up when
+    its time per call is the smaller).  The host's other tenants make
+    single rounds spread; callers report the median."""
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args, **kw)
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return out
+
+
 def device_activity(prof) -> list:
     """(name, start_us, end_us) of every device activity a profile saw."""
     from torch.autograd import DeviceType
@@ -439,11 +486,17 @@ def device_activity(prof) -> list:
     return out
 
 
-def device_ms(fn, sets, kw) -> float:
+def device_ms(fn, sets, kw, kernels_per_call: int | None = None) -> float:
     """Device time per call: the summed durations of every kernel the
-    calls ran, from the profiler.  The profiler now and then returns a
-    window without device activity; such a window is measured again, up
-    to three windows in all (0.0 if none saw device activity)."""
+    calls ran, from the profiler, over the number of calls.  The profiler
+    now and then returns a window without device activity; such a window
+    is measured again, up to three windows in all (0.0 if none passed).
+    It may also lose a few records of a window (2 to 4 of 50 to 205
+    kernels on an H100), so for a function that launches
+    ``kernels_per_call`` kernels a call the time is the mean over the
+    kernels the window recorded, times that count; a window that recorded
+    more kernels than were launched, or fewer than nine in ten, is
+    measured again."""
     from torch.profiler import ProfilerActivity, profile
     reps, run = calls(fn, sets, kw)
     run()
@@ -452,9 +505,18 @@ def device_ms(fn, sets, kw) -> float:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        total = sum(end - start for _, start, end in device_activity(prof))
-        if total > 0:
+        spans = device_activity(prof)
+        total = sum(end - start for _, start, end in spans)
+        if total <= 0:
+            continue
+        if kernels_per_call is None:
             return total / reps / 1e3
+        launched = kernels_per_call * reps
+        if launched != len(spans):
+            log("6 timings", f"a profiled window recorded {len(spans)} of "
+                f"{launched} kernels")
+        if 0.9 * launched <= len(spans) <= launched:
+            return total / len(spans) * kernels_per_call / 1e3
     return 0.0
 
 
@@ -538,7 +600,35 @@ def bound(name: str, args, kw) -> tuple[float, str, int, int]:
     return by_bytes, "bytes", moved, ops
 
 
-def timings(K, KREF, launches, captured, errs, paths=PATHS) -> list:
+def launch_floor(build, K, name: str, args) -> dict | None:
+    """An empty kernel (``e2c_noop``) launched at the grid the kernel's
+    captured call launches: device and stream ms and host us per call,
+    the floor a launch of that size cannot go under.  None for a version
+    of the port without it (``--src`` of an older checkout)."""
+    if "e2c_noop" not in build.LIBRARIES["sched_argmin"]["signatures"]:
+        return None
+    r = args[0].shape[0]
+    blocks = r
+    if name == "masked_argmin" and K.argmin_layout(
+            args[0][0].numel(), 0, 0) != 0:
+        blocks = -(-r // 8)                     # 8 replicas a CTA
+    lib = build.load()
+
+    def noop():
+        build.check(lib.e2c_noop(blocks, 256, K._stream(args[0])), "noop")
+    floor = {"grid": f"{blocks}x256", "ms": device_ms(noop, [()], {}, 1),
+             "stream_ms": time_ms(noop, [()], {})}
+    host = host_us(noop, (), {})
+    floor["host_us"] = float(np.median(host))
+    log("6 timings", f"launch floor of {name}: e2c_noop at {blocks} CTAs x "
+        f"256 threads: device time per call {floor['ms']:.5f} ms, stream "
+        f"time per call {floor['stream_ms']:.5f} ms, host time per call "
+        f"{floor['host_us']:.2f} us (rounds {min(host):.2f}-"
+        f"{max(host):.2f}); {gpu_line()}")
+    return floor
+
+
+def timings(K, KREF, build, launches, captured, errs, paths=PATHS) -> list:
     """One kernels-JSON row per scheduling kernel; ``launches`` and
     ``captured`` map each sweep path to its counts and captured inputs."""
     rows = []
@@ -556,11 +646,14 @@ def timings(K, KREF, launches, captured, errs, paths=PATHS) -> list:
         sets = cold_sets(args)
         stream_ms = time_ms(kernel, sets, kw)
         plain_stream_ms = time_ms(plain, sets, kw)
-        ms = device_ms(kernel, sets, kw)
+        ms = device_ms(kernel, sets, kw, 1)
         plain_ms = device_ms(plain, sets, kw)
         del sets
+        host_rounds = host_us(kernel, args, kw)
+        host = float(np.median(host_rounds))
+        floor = launch_floor(build, K, name, args)
         K.launches.update(saved)
-        if ms <= 0.0 or plain_ms <= 0.0:
+        if ms <= 0.0 or plain_ms <= 0.0 or (floor and floor["ms"] <= 0.0):
             raise AssertionError(f"{name}: the profiler saw no device time")
         bound_ms, bound_by, moved, ops = bound(name, args, kw)
         shape = ", ".join("x".join(map(str, a.shape)) for a in args
@@ -569,9 +662,10 @@ def timings(K, KREF, launches, captured, errs, paths=PATHS) -> list:
             f"inputs cold in L2: "
             f"device time per call (profiler) kernel {ms:.5f} ms, plain "
             f"{plain_ms:.5f} ms; stream time per call (CUDA events) kernel "
-            f"{stream_ms:.5f} ms, plain {plain_stream_ms:.5f} ms; bound "
-            f"{bound_ms:.5f} ms by {bound_by} ({moved} bytes, {ops} "
-            f"operations); {gpu_line()}")
+            f"{stream_ms:.5f} ms, plain {plain_stream_ms:.5f} ms; host time "
+            f"per wrapper call {host:.2f} us (rounds {min(host_rounds):.2f}-"
+            f"{max(host_rounds):.2f}); bound {bound_ms:.5f} ms by "
+            f"{bound_by} ({moved} bytes, {ops} operations); {gpu_line()}")
         rows.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                      "replaces": REPLACES[name],
                      "launches": sum(launches[p][name] for p in paths),
@@ -580,7 +674,8 @@ def timings(K, KREF, launches, captured, errs, paths=PATHS) -> list:
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None,
                      "stream_ms": stream_ms,
-                     "plain_stream_ms": plain_stream_ms})
+                     "plain_stream_ms": plain_stream_ms, "host_us": host,
+                     "floor": floor})
     return rows
 
 
@@ -618,11 +713,12 @@ def profile_window(X, E, K, dev, path, n_rep, n_tasks, n_mach, steps=32):
                                    key=lambda kv: -kv[1][0])[:8]:
         log(phase, f"{tot / 1e3:10.2f} ms {cnt:7d} x  {name[:90]}")
     for kname in K.NAMES:
+        # every layout's kernel: masked_argmin_warp_kernel<true>, ...
         hits = [(t, c) for n, (t, c) in by_name.items()
-                if kname + "_kernel" in n]
+                if kname in n and "_kernel" in n]
         if hits:
-            t, c = hits[0]
-            log(phase, f"in the main path: {kname}_kernel {c} calls, "
+            t, c = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            log(phase, f"in the main path: {kname} {c} calls, "
                 f"{t / c / 1e3:.5f} ms device time each")
 
 
@@ -1215,7 +1311,12 @@ def main() -> int:
     ap.add_argument("--serve-tiny", action="store_true",
                     help="serve the apps' tiny configurations (prompt 40, "
                     "6 tokens) instead of the full-width ones")
+    ap.add_argument("--src", default=ROOT,
+                    help="checkout whose src/repro_torch to drive (default "
+                    "this one): times another version of the port with "
+                    "this script's measurements")
     a = ap.parse_args()
+    sys.path.insert(0, os.path.join(os.path.abspath(a.src), "src"))
     paths = [p for p in a.paths.split(",") if p]
     if not set(paths) <= set(ALL_PATHS):
         ap.error(f"--paths takes {ALL_PATHS}")
@@ -1245,7 +1346,7 @@ def main() -> int:
     card = gpu_line()
     log("1 device", f"{name} x{torch.cuda.device_count()}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}; TF32 off for "
-        f"matmul and cuDNN")
+        f"matmul and cuDNN; the port from {os.path.dirname(K.__file__)}")
     print(card, flush=True)
 
     t0 = time.perf_counter()
@@ -1285,7 +1386,7 @@ def main() -> int:
     if "serve" in paths:
         serve_card_vs_cpu(dev)
     if sweeps:
-        rows += timings(K, KREF, launches, captured, errs, sweeps)
+        rows += timings(K, KREF, build, launches, captured, errs, sweeps)
     if "serve" in paths:
         rows += model_timings(mods, serve_launches, serve_captured, errs,
                               in_run)

@@ -4,7 +4,8 @@ The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
 so one ``nvcc`` call builds a source into a shared library in seconds.
 Each source is its own library with its own flags:
 
-* ``sched_argmin`` (the five dispatch and event-loop reductions) is built
+* ``sched_argmin`` (the five dispatch and event-loop reductions, and an
+  empty kernel that measures the launch floor) is built
   with ``--fmad=false``: its kernels are held bit for bit to their plain
   versions, so no multiply-add may be contracted;
 * ``flash_attention`` and ``grouped_matmul`` (the model kernels) are held
@@ -42,14 +43,19 @@ LIBRARIES = {
     "sched_argmin": {
         "flags": COMMON_FLAGS + ("--fmad=false",),
         "signatures": {
-            "e2c_masked_argmin": (_P, _P, _I, _I, _P, _P, _P),
+            # values, mask, r, len, layout, idx, min, stream
+            "e2c_masked_argmin": (_P, _P, _I, _I, _I, _P, _P, _P),
             "e2c_fused_minmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                                  _P),
-            "e2c_fused_maxmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                 _P, _P),
+            # avail, in_batch, room, type_id, eet_m, r, n, m, t, layout,
+            # task, machine, score, stream
+            "e2c_fused_maxmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                 _P, _P, _P),
             "e2c_fused_start_pick": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
             "e2c_fused_event_bounds": (_P, _P, _P, _I, _I, _I, _I, _I, _P,
                                        _P, _P),
+            # an empty kernel: blocks, threads, stream
+            "e2c_noop": (_I, _I, _P),
         },
     },
     "flash_attention": {

@@ -11,15 +11,39 @@
 // reduces a few KB to a few hundred KB per replica and does a handful of
 // compares per byte, far under the card's ops-per-byte balance; at the
 // engine's shapes one launch moves well under a megabyte, so launch and
-// tail latency dominate the byte time.
+// tail latency dominate the byte time.  The designs therefore aim at one
+// round trip to memory per call, few barriers and a single wave of CTAs;
+// e2c_noop, an empty kernel at a given grid, measures the floor.  On an
+// H100 (700 W) at the engine's shapes, masked_argmin takes 2.1x and
+// fused_maxmin 3.5x the empty kernel's device time at their grids: what
+// is left is one cold round trip to memory and the reductions
+// (chip_smoke.py, phase 6).
 //
 // Design.  The Pallas kernels walk the task axis as a *sequential* grid
 // and carry the running winner in SMEM; CUDA blocks run in no order, so
-// the carry is replaced by one CTA per replica (grid = R, the replica
-// axis outermost): each thread scans a strided slice of the task axis in
-// increasing index order, then the CTA reduces (value, index) pairs with
-// warp shuffles.  The exact-equivalence contract of the reference is
-// rebuilt in the pair order itself:
+// the carry is replaced by a reduction over (value, index) pairs inside
+// one replica's warp or CTA, the replica axis outermost:
+//   * masked_argmin, rows of len <= 1024 (the engine's drain calls it on
+//     (R, 1, M) rows): a warp per replica, 8 replicas a CTA; each lane
+//     scans a contiguous chunk in index order (16-byte loads where the
+//     wrapper found len % 4 == 0 and aligned rows), then a five-step
+//     shuffle reduction; no shared memory and no barrier.  Longer rows:
+//     a 256-thread CTA per replica, strided slices, a two-level shuffle
+//     reduction through shared memory.  The wrapper picks the layout.
+//   * fused_maxmin: a task's row minimum depends on its type only, so a
+//     CTA per replica first reduces each of the T types over the machines
+//     (a warp per type, lanes over machines), keeps (minimum, machine) of
+//     every type in shared memory, then scans the tasks (4 a thread with
+//     16-byte type_id loads, prefetched before the type phase) for the
+//     first-index argmax: T x M + N work in place of N x M.  Its
+//     reductions are two redux.sync each, the least order-preserving key
+//     and then the least index among the lanes holding it.  Where T > N,
+//     or the table would not fit in 48 KB, the wrapper picks the per-task
+//     layout: each thread walks whole task rows.
+//   * fused_minmin, fused_start_pick, fused_event_bounds: a 256-thread CTA
+//     per replica over strided slices of the task axis.
+// The exact-equivalence contract of the reference is rebuilt in the pair
+// order itself:
 //   * ties go to the first flat index (a lower index wins an equal value,
 //     and -0.0 == +0.0 counts as equal, as in argmin);
 //   * masked cells take part as 1e30, so a valid cell >= 1e30 loses to
@@ -115,6 +139,61 @@ __device__ unsigned int block_umin(unsigned int k) {
 // masked_argmin: values f32 (R, len), mask u8 (R, len) -> idx i32 (R,),
 // min f32 (R,).  len is the row-major flattening of one replica's (N, M).
 // ---------------------------------------------------------------------------
+constexpr int kRowWarps = 8;  // replicas a CTA in the warp-per-replica layout
+
+// One cell of a lane's in-order scan: masked cells take part as BIG.
+__device__ __forceinline__ void argmin_cell(float x, uint8_t ok, int j,
+                                            float& bv, int& bi, int& any) {
+  const float v = ok ? x : kBig;
+  any |= ok;
+  if (better(v, j, bv, bi)) {
+    bv = v;
+    bi = j;
+  }
+}
+
+// A warp per replica: lane l scans the contiguous chunk [l * chunk,
+// (l + 1) * chunk) in index order, then a five-step shuffle reduction.
+// kVec: len % 4 == 0 and 16-byte aligned rows, chunks of whole float4s.
+template <bool kVec>
+__global__ void __launch_bounds__(kRowWarps * 32)
+    masked_argmin_warp_kernel(const float* __restrict__ values,
+                              const uint8_t* __restrict__ mask, int rows,
+                              int len, int* __restrict__ out_idx,
+                              float* __restrict__ out_min) {
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const float* v = values + r * len;
+  const uint8_t* mk = mask + r * len;
+  const int chunk = kVec ? ((len + 127) >> 7) << 2 : (len + 31) >> 5;
+  const int lo = lane * chunk;
+  const int hi = min(lo + chunk, len);
+  float bv = INFINITY;
+  int bi = INT_MAX;
+  int any = 0;
+  if (kVec) {
+    for (int j = lo; j < hi; j += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(v + j);
+      const uchar4 ok = *reinterpret_cast<const uchar4*>(mk + j);
+      argmin_cell(x.x, ok.x, j, bv, bi, any);
+      argmin_cell(x.y, ok.y, j + 1, bv, bi, any);
+      argmin_cell(x.z, ok.z, j + 2, bv, bi, any);
+      argmin_cell(x.w, ok.w, j + 3, bv, bi, any);
+    }
+  } else {
+    for (int j = lo; j < hi; ++j) argmin_cell(v[j], mk[j], j, bv, bi, any);
+  }
+  warp_argmin(bv, bi);
+  any = __any_sync(0xffffffffu, any);
+  if (lane == 0) {
+    out_idx[r] = any ? bi : -1;
+    out_min[r] = any ? bv : kBig;
+  }
+}
+
+// A CTA per replica, for rows longer than the warp layout takes.
 __global__ void masked_argmin_kernel(const float* __restrict__ values,
                                      const uint8_t* __restrict__ mask,
                                      int len, int* __restrict__ out_idx,
@@ -202,46 +281,221 @@ __global__ void fused_minmin_kernel(const float* __restrict__ avail,
 
 // ---------------------------------------------------------------------------
 // fused_maxmin: the inputs of fused_minmin -> task i32 (R,), machine i32
-// (R,), score f32 (R,).  Per in-batch task row, the masked row minimum
-// (its first-index machine from a strict-< scan in increasing machine
-// order) is the task's score; the CTA then takes the largest score, the
-// lowest task index on equal scores.  A row outside the batch queue
-// scores -BIG with machine 0 in O(1): only the first such row of a
-// thread can still win, and only if every in-batch score is below -BIG.
-// No valid (in_batch, room) pair -> (-1, -1, -BIG).
+// (R,), score f32 (R,).  An in-batch task's score is the masked minimum of
+// its completion row (-0.0 where that minimum is zero and a cell is -0.0)
+// on the row's first-index machine; the CTA takes the largest score, the
+// lowest task index on equal scores.  A task outside the batch queue
+// scores -BIG on machine 0: it wins only if every in-batch score is below
+// -BIG.  No valid (in_batch, room) pair -> (-1, -1, -BIG).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ bool better_max(float v, int i, float bv,
                                            int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-__device__ __forceinline__ void warp_argmax3(float& v, int& i, int& j) {
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_down_sync(0xffffffffu, v, off);
-    int oi = __shfl_down_sync(0xffffffffu, i, off);
-    int oj = __shfl_down_sync(0xffffffffu, j, off);
-    if (better_max(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-      j = oj;
-    }
-  }
+// Order-preserving key under which -0.0 and +0.0 are equal, as they are
+// under the comparisons of argmin and argmax.
+__device__ __forceinline__ unsigned int tie_key(float x) {
+  return float_key(x == 0.0f ? 0.0f : x);
 }
 
-__global__ void fused_maxmin_kernel(const float* __restrict__ avail,
-                                    const uint8_t* __restrict__ in_batch,
-                                    const uint8_t* __restrict__ room,
-                                    const int* __restrict__ type_id,
-                                    const float* __restrict__ eet_m, int n,
-                                    int m, int t, int* __restrict__ out_task,
-                                    int* __restrict__ out_mach,
-                                    float* __restrict__ out_score) {
-  extern __shared__ unsigned char smem[];
-  float* s_avail = reinterpret_cast<float*>(smem);
-  uint8_t* s_room = reinterpret_cast<uint8_t*>(s_avail + m);
+// Lexicographic (key, index) minimum over the warp in two redux.sync: the
+// least key, then the least index among the lanes that hold it.  Every
+// lane gets the pair; the return value is a lane that holds it.
+__device__ __forceinline__ int warp_min_pair(unsigned int& key, int& idx) {
+  const unsigned int k = __reduce_min_sync(0xffffffffu, key);
+  const int i = __reduce_min_sync(0xffffffffu, key == k ? idx : INT_MAX);
+  const int src = __ffs(__ballot_sync(0xffffffffu, key == k && idx == i)) - 1;
+  key = k;
+  idx = i;
+  return src;
+}
+
+// (score, task, machine) argmax over the CTA, valid in thread 0: the
+// largest score (the least complemented key), the lowest task on equal
+// scores, the winner's own bits and machine shuffled from its lane.  The
+// one barrier also ORs `any` over the CTA, which it returns.
+__device__ int block_argmax3(float& v, int& i, int& j, int any) {
   __shared__ float s_v[32];
   __shared__ int s_i[32];
   __shared__ int s_j[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned int k = ~tie_key(v);
+  int src = warp_min_pair(k, i);
+  v = __shfl_sync(0xffffffffu, v, src);
+  j = __shfl_sync(0xffffffffu, j, src);
+  if (lane == 0) {
+    s_v[warp] = v;
+    s_i[warp] = i;
+    s_j[warp] = j;
+  }
+  any = __syncthreads_or(any);
+  if (warp == 0) {
+    const int n_warps = (blockDim.x + 31) >> 5;
+    v = lane < n_warps ? s_v[lane] : -INFINITY;
+    i = lane < n_warps ? s_i[lane] : INT_MAX;
+    j = lane < n_warps ? s_j[lane] : 0;
+    k = ~tie_key(v);
+    src = warp_min_pair(k, i);
+    v = __shfl_sync(0xffffffffu, v, src);
+    j = __shfl_sync(0xffffffffu, j, src);
+  }
+  return any;
+}
+
+__device__ __forceinline__ void store_maxmin(int64_t r, int ok, float bv,
+                                             int bi, int bm,
+                                             int* __restrict__ out_task,
+                                             int* __restrict__ out_mach,
+                                             float* __restrict__ out_score) {
+  out_task[r] = ok ? bi : -1;
+  out_mach[r] = ok ? bm : -1;
+  out_score[r] = ok ? bv : -kBig;
+}
+
+// One task of the scan: its type's (minimum, machine), or (-BIG, 0)
+// outside the batch queue; the table is read for in-batch tasks only.
+__device__ __forceinline__ void maxmin_task(
+    int task, unsigned int in, int type, const float* s_min,
+    const int* s_mach, float& bv, int& bi, int& bm, int& any) {
+  float v = -kBig;
+  int mach = 0;
+  if (in) {
+    v = s_min[type];
+    mach = s_mach[type];
+    any = 1;
+  }
+  if (better_max(v, task, bv, bi)) {
+    bv = v;
+    bi = task;
+    bm = mach;
+  }
+}
+
+// This thread's group g of tasks: 4 (tasks 4g..4g+3) with kVec, else 1.
+template <bool kVec>
+__device__ __forceinline__ void load_tasks(const uint8_t* inb,
+                                           const int* tid, int g,
+                                           unsigned int& in, int4& type) {
+  if (kVec) {
+    in = *reinterpret_cast<const unsigned int*>(inb + 4 * g);
+    type = *reinterpret_cast<const int4*>(tid + 4 * g);
+  } else {
+    in = inb[g];
+    type.x = tid[g];
+  }
+}
+
+// Per-type layout.  (a) A warp per type: lanes over machines, each lane
+// in increasing machine order, a (key, machine) redux reduction, the -0.0
+// rule; the type's (minimum, machine) goes to shared memory.  (b) The task scan:
+// each thread's first group of tasks is loaded before (a), the next one
+// while the current one is scanned.  kVec: n % 4 == 0 and 16-byte
+// aligned type_id rows, 4 tasks a thread and load.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) fused_maxmin_type_kernel(
+    const float* __restrict__ avail, const uint8_t* __restrict__ in_batch,
+    const uint8_t* __restrict__ room, const int* __restrict__ type_id,
+    const float* __restrict__ eet_m, int n, int m, int t,
+    int* __restrict__ out_task, int* __restrict__ out_mach,
+    float* __restrict__ out_score) {
+  extern __shared__ float s_type_min[];
+  int* s_type_mach = reinterpret_cast<int*>(s_type_min + t);
+  constexpr int kPer = kVec ? 4 : 1;
+  const int64_t r = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int n_groups = n / kPer;  // kVec: n % 4 == 0
+  const uint8_t* inb = in_batch + r * n;
+  const int* tid = type_id + r * n;
+  int g = threadIdx.x;
+  unsigned int in = 0;
+  int4 type = make_int4(0, 0, 0, 0);
+  if (g < n_groups) load_tasks<kVec>(inb, tid, g, in, type);
+
+  const float* av = avail + r * m;
+  const uint8_t* rm = room + r * m;
+  const float* eet = eet_m + r * static_cast<int64_t>(t) * m;
+  int any_room = 0;  // read in warp 0, which reduces type 0 (T = 0: no
+                     // task can be in the batch, and 0 gives the sentinel)
+  for (int ty = warp; ty < t; ty += n_warps) {
+    const float* e = eet + static_cast<int64_t>(ty) * m;
+    float v = INFINITY;
+    int mach = INT_MAX;
+    int neg_zero = 0;
+    for (int col = lane; col < m; col += 32) {
+      // all three loads unconditional, so they share one round trip
+      const uint8_t ok = rm[col];
+      const float a = av[col];
+      const float c = e[col];
+      const float x = ok ? __fadd_rn(a, c) : kBig;
+      any_room |= ok;
+      neg_zero |= x == 0.0f && signbit(x);
+      if (better(x, col, v, mach)) {
+        v = x;
+        mach = col;
+      }
+    }
+    unsigned int key = tie_key(v);
+    warp_min_pair(key, mach);
+    neg_zero = __any_sync(0xffffffffu, neg_zero);
+    if (lane == 0) {
+      v = key_float(key);  // a zero minimum comes back as +0.0
+      s_type_min[ty] = v == 0.0f && neg_zero ? -0.0f : v;
+      s_type_mach[ty] = mach;
+    }
+  }
+  any_room = __any_sync(0xffffffffu, any_room);
+  __syncthreads();
+
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  int bm = 0;
+  int any = 0;
+  for (; g < n_groups; g += blockDim.x) {
+    const unsigned int in_g = in;
+    const int4 type_g = type;
+    if (g + static_cast<int>(blockDim.x) < n_groups)
+      load_tasks<kVec>(inb, tid, g + blockDim.x, in, type);
+    if (kVec) {
+      const int task = 4 * g;
+      maxmin_task(task, in_g & 0xffu, type_g.x, s_type_min, s_type_mach,
+                  bv, bi, bm, any);
+      maxmin_task(task + 1, (in_g >> 8) & 0xffu, type_g.y, s_type_min,
+                  s_type_mach, bv, bi, bm, any);
+      maxmin_task(task + 2, (in_g >> 16) & 0xffu, type_g.z, s_type_min,
+                  s_type_mach, bv, bi, bm, any);
+      maxmin_task(task + 3, in_g >> 24, type_g.w, s_type_min, s_type_mach,
+                  bv, bi, bm, any);
+    } else {
+      maxmin_task(g, in_g, type_g.x, s_type_min, s_type_mach, bv, bi, bm,
+                  any);
+    }
+  }
+  any = block_argmax3(bv, bi, bm, any);
+  if (threadIdx.x == 0)
+    store_maxmin(r, any && any_room, bv, bi, bm, out_task, out_mach,
+                 out_score);
+}
+
+// Per-task layout (T > N, or a type table too large for shared memory):
+// each thread walks whole task rows, a strict-< scan in increasing
+// machine order.  A row outside the batch queue costs O(1): only the
+// first such row of a thread can still win.
+__global__ void fused_maxmin_task_kernel(const float* __restrict__ avail,
+                                         const uint8_t* __restrict__ in_batch,
+                                         const uint8_t* __restrict__ room,
+                                         const int* __restrict__ type_id,
+                                         const float* __restrict__ eet_m,
+                                         int n, int m, int t,
+                                         int* __restrict__ out_task,
+                                         int* __restrict__ out_mach,
+                                         float* __restrict__ out_score) {
+  extern __shared__ unsigned char smem[];
+  float* s_avail = reinterpret_cast<float*>(smem);
+  uint8_t* s_room = reinterpret_cast<uint8_t*>(s_avail + m);
   const int64_t r = blockIdx.x;
   for (int j = threadIdx.x; j < m; j += blockDim.x) {
     s_avail[j] = avail[r * m + j];
@@ -289,29 +543,12 @@ __global__ void fused_maxmin_kernel(const float* __restrict__ avail,
       bm = rm;
     }
   }
-  any = __syncthreads_or(any);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  warp_argmax3(bv, bi, bm);
-  if (lane == 0) {
-    s_v[warp] = bv;
-    s_i[warp] = bi;
-    s_j[warp] = bm;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    bv = lane < n_warps ? s_v[lane] : -INFINITY;
-    bi = lane < n_warps ? s_i[lane] : INT_MAX;
-    bm = lane < n_warps ? s_j[lane] : 0;
-    warp_argmax3(bv, bi, bm);
-    if (lane == 0) {
-      out_task[r] = any ? bi : -1;
-      out_mach[r] = any ? bm : -1;
-      out_score[r] = any ? bv : -kBig;
-    }
-  }
+  any = block_argmax3(bv, bi, bm, any);
+  if (threadIdx.x == 0)
+    store_maxmin(r, any, bv, bi, bm, out_task, out_mach, out_score);
 }
+
+__global__ void noop_kernel() {}
 
 // ---------------------------------------------------------------------------
 // fused_start_pick: status/machine/seq i32 (R, N) -> pick i32 (R, M),
@@ -418,11 +655,26 @@ const char* e2c_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// layout: 0 a CTA per replica, 1 a warp per replica, 2 a warp per
+// replica with 16-byte loads (the wrapper's choice, from len and the
+// rows' alignment).
 int e2c_masked_argmin(const void* values, const void* mask, int r, int len,
-                      void* out_idx, void* out_min, void* stream) {
-  masked_argmin_kernel<<<r, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(values), static_cast<const uint8_t*>(mask),
-      len, static_cast<int*>(out_idx), static_cast<float*>(out_min));
+                      int layout, void* out_idx, void* out_min,
+                      void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(values);
+  const uint8_t* mk = static_cast<const uint8_t*>(mask);
+  int* idx = static_cast<int*>(out_idx);
+  float* vmin = static_cast<float*>(out_min);
+  const int grid = (r + kRowWarps - 1) / kRowWarps;
+  if (layout == 2)
+    masked_argmin_warp_kernel<true><<<grid, kRowWarps * 32, 0, s>>>(
+        v, mk, r, len, idx, vmin);
+  else if (layout == 1)
+    masked_argmin_warp_kernel<false><<<grid, kRowWarps * 32, 0, s>>>(
+        v, mk, r, len, idx, vmin);
+  else
+    masked_argmin_kernel<<<r, kThreads, 0, s>>>(v, mk, len, idx, vmin);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -442,19 +694,38 @@ int e2c_fused_minmin(const void* avail, const void* in_batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// layout: 0 per task, 1 per type, 2 per type with 16-byte task loads (the
+// wrapper's choice, from N, T and the rows' alignment).
 int e2c_fused_maxmin(const void* avail, const void* in_batch,
                      const void* room, const void* type_id, const void* eet_m,
-                     int r, int n, int m, int t, void* out_task,
+                     int r, int n, int m, int t, int layout, void* out_task,
                      void* out_mach, void* out_score, void* stream) {
-  const size_t smem = static_cast<size_t>(m) * (sizeof(float) + 1);
-  cudaError_t err = allow_smem(fused_maxmin_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_maxmin_kernel<<<r, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(avail), static_cast<const uint8_t*>(in_batch),
-      static_cast<const uint8_t*>(room), static_cast<const int*>(type_id),
-      static_cast<const float*>(eet_m), n, m, t, static_cast<int*>(out_task),
-      static_cast<int*>(out_mach), static_cast<float*>(out_score));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* av = static_cast<const float*>(avail);
+  const uint8_t* inb = static_cast<const uint8_t*>(in_batch);
+  const uint8_t* rm = static_cast<const uint8_t*>(room);
+  const int* tid = static_cast<const int*>(type_id);
+  const float* eet = static_cast<const float*>(eet_m);
+  int* task = static_cast<int*>(out_task);
+  int* mach = static_cast<int*>(out_mach);
+  float* score = static_cast<float*>(out_score);
+  if (layout == 0) {
+    const size_t smem = static_cast<size_t>(m) * (sizeof(float) + 1);
+    const cudaError_t err = allow_smem(fused_maxmin_task_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_maxmin_task_kernel<<<r, kThreads, smem, s>>>(
+        av, inb, rm, tid, eet, n, m, t, task, mach, score);
+  } else {
+    // the wrapper keeps the (minimum, machine) table within 48 KB
+    const size_t smem = static_cast<size_t>(t) * (sizeof(float) +
+                                                  sizeof(int));
+    if (layout == 2)
+      fused_maxmin_type_kernel<true><<<r, kThreads, smem, s>>>(
+          av, inb, rm, tid, eet, n, m, t, task, mach, score);
+    else
+      fused_maxmin_type_kernel<false><<<r, kThreads, smem, s>>>(
+          av, inb, rm, tid, eet, n, m, t, task, mach, score);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -481,6 +752,13 @@ int e2c_fused_event_bounds(const void* status, const void* arrival,
       static_cast<const int*>(status), static_cast<const float*>(arrival),
       static_cast<const float*>(deadline), n, not_arrived, live_lo, live_hi,
       static_cast<float*>(t_arr), static_cast<float*>(t_dl));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel at the given grid: the floor a launch of that size
+// cannot go under.
+int e2c_noop(int blocks, int threads, void* stream) {
+  noop_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

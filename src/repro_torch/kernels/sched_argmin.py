@@ -4,17 +4,27 @@ Replaces the five Pallas kernels of ``repro/kernels/sched_argmin.py``:
 ``masked_argmin`` (:89), ``fused_minmin`` (:227), ``fused_maxmin``
 (:427), ``fused_start_pick`` (:315) and ``fused_event_bounds`` (:388).
 The kernels live in ``csrc/sched_argmin.cu``; its header says how the
-sequential-grid carry of the Pallas versions became one CTA per replica
-with a (value, index) block reduction.
+sequential-grid carry of the Pallas versions became a (value, index)
+reduction inside one replica's warp or CTA.
 
 What bounds them on the H100 is bytes, and at the engine's shapes launch
 latency below that: a call moves a few KB to a few hundred KB per
-replica and does one or two operations per byte.  ``fused_maxmin`` in
-particular reads ``in_batch`` and ``room`` whole but, of ``type_id`` and
-the (T, M) EET table, only the rows of tasks waiting in the batch queue;
-its design answers that by skipping a row outside the queue in O(1) and
-giving each thread whole task rows, so the (N, M) completion matrix and
-the per-task minima never leave registers.
+replica and does one or two operations per byte.  So the designs aim at
+one round trip to memory, few barriers and one wave of CTAs, and the
+wrappers at little host work per call.  Two kernels have two layouts,
+which the wrapper picks on the host from the shapes:
+
+* ``masked_argmin``: rows of ``len = N*M <= ARGMIN_WARP_MAX`` (the
+  engine's drain calls it on (R, 1, M) rows) take a warp per replica,
+  each lane a contiguous chunk, no shared memory and no barrier, with
+  16-byte loads where ``len % 4 == 0`` and the rows are aligned; longer
+  rows take a 256-thread CTA per replica.
+* ``fused_maxmin``: a task's row minimum depends only on its type, so
+  where ``T <= N`` and the T-entry (minimum, machine) table fits in
+  shared memory (``T <= TYPE_TABLE_MAX``) a CTA per replica reduces each
+  type over the machines once and then scans the tasks: T*M + N work in
+  place of N*M.  Otherwise each thread walks whole task rows, as the
+  per-task layout did before.
 
 Every wrapper takes a leading replica axis R and computes, per replica,
 what the Pallas function computes for one.  A tensor on the CPU goes to
@@ -25,6 +35,8 @@ main path went through the kernels.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import build
@@ -32,6 +44,8 @@ from repro_torch.kernels import ref
 
 NAMES = ("masked_argmin", "fused_minmin", "fused_maxmin",
          "fused_start_pick", "fused_event_bounds")
+ARGMIN_WARP_MAX = 1024          # longest row a warp per replica takes
+TYPE_TABLE_MAX = 48 * 1024 // 8  # (f32, i32) type entries in 48 KB
 
 launches = dict.fromkeys(NAMES, 0)
 
@@ -48,26 +62,49 @@ def _count(name: str) -> None:
 def _on_cuda(*tensors: torch.Tensor) -> bool:
     """True for CUDA inputs, False for CPU inputs; raises on a mix or on
     another device type."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
+    dev = tensors[0].device
+    if all(t.device == dev for t in tensors[1:]) \
+            and dev.type in ("cpu", "cuda"):
+        return dev.type == "cuda"
     raise ValueError(f"kernel inputs must all be on one CPU or CUDA device, "
                      f"got {sorted(str(t.device) for t in tensors)}")
 
 
 def _expect(x: torch.Tensor, dtype: torch.dtype, shape: tuple, what: str
             ) -> torch.Tensor:
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+    if x.dtype != dtype or x.shape != shape:
         raise ValueError(f"{what}: expected {dtype} {tuple(shape)}, got "
                          f"{x.dtype} {tuple(x.shape)}")
     return x.contiguous()
 
 
-def _stream() -> int:
-    """PyTorch's current CUDA stream, as the handle the launchers take."""
-    return torch.cuda.current_stream().cuda_stream
+def _stream(x: torch.Tensor) -> int:
+    """PyTorch's current CUDA stream on ``x``'s device, as the handle the
+    launchers take.  ``torch.cuda.current_stream().cuda_stream`` gives
+    the same handle but builds a ``Stream`` object on every call, which
+    costs more host time than the launch itself; this is the call that
+    PyTorch's own generated kernel launchers make."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
+def argmin_layout(length: int, values_ptr: int, mask_ptr: int) -> int:
+    """``masked_argmin``'s layout for rows of ``length`` cells: 0 a CTA
+    per replica, 1 a warp per replica, 2 a warp per replica with 16-byte
+    loads (``length % 4 == 0`` and aligned rows)."""
+    if length > ARGMIN_WARP_MAX:
+        return 0
+    return 2 if length % 4 == 0 and values_ptr % 16 == 0 \
+        and mask_ptr % 4 == 0 else 1
+
+
+def maxmin_layout(n: int, t: int, type_ptr: int, in_batch_ptr: int) -> int:
+    """``fused_maxmin``'s layout for N tasks of T types: 0 per task, 1 per
+    type, 2 per type with 16-byte task loads (``n % 4 == 0`` and aligned
+    rows)."""
+    if t > n or t > TYPE_TABLE_MAX:
+        return 0
+    return 2 if n % 4 == 0 and type_ptr % 16 == 0 \
+        and in_batch_ptr % 4 == 0 else 1
 
 
 def masked_argmin(values: torch.Tensor, mask: torch.Tensor
@@ -78,19 +115,23 @@ def masked_argmin(values: torch.Tensor, mask: torch.Tensor
     value) to ``argmin(where(mask, values, BIG))`` row-major."""
     if not _on_cuda(values, mask):
         return ref.masked_argmin_ref(values, mask)
+    if values.dtype != torch.float32:
+        values = values.to(torch.float32)
+    values = values.contiguous()
+    mask = _expect(mask, torch.bool, values.shape, "mask")
     r = values.shape[0]
-    length = values[0].numel()
+    length = math.prod(values.shape[1:])
     if length >= 2**31:
         raise ValueError("masked_argmin: N*M must fit in int32")
-    values = _expect(values.to(torch.float32), torch.float32, values.shape,
-                     "values")
-    mask = _expect(mask, torch.bool, values.shape, "mask")
-    idx = torch.empty(r, dtype=torch.int32, device=values.device)
-    vmin = torch.empty(r, dtype=torch.float32, device=values.device)
+    dev = values.device
+    idx = torch.empty(r, dtype=torch.int32, device=dev)
+    vmin = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
+        vp, mp = values.data_ptr(), mask.data_ptr()
         build.check(build.load().e2c_masked_argmin(
-            values.data_ptr(), mask.data_ptr(), r, length, idx.data_ptr(),
-            vmin.data_ptr(), _stream()), "masked_argmin")
+            vp, mp, r, length, argmin_layout(length, vp, mp),
+            idx.data_ptr(), vmin.data_ptr(), _stream(values)),
+            "masked_argmin")
         _count("masked_argmin")
     return idx, vmin
 
@@ -122,7 +163,7 @@ def fused_minmin(avail: torch.Tensor, in_batch: torch.Tensor,
         build.check(build.load().e2c_fused_minmin(
             avail.data_ptr(), in_batch.data_ptr(), room.data_ptr(),
             type_id.data_ptr(), eet_m.data_ptr(), r, n, m, t, idx.data_ptr(),
-            vmin.data_ptr(), _stream()), "fused_minmin")
+            vmin.data_ptr(), _stream(avail)), "fused_minmin")
         _count("fused_minmin")
     return idx, vmin
 
@@ -147,14 +188,17 @@ def fused_maxmin(avail: torch.Tensor, in_batch: torch.Tensor,
     room = _expect(room, torch.bool, (r, m), "room")
     type_id = _expect(type_id, torch.int32, (r, n), "type_id")
     eet_m = _expect(eet_m, torch.float32, (r, t, m), "eet_m")
-    task = torch.empty(r, dtype=torch.int32, device=avail.device)
-    mach = torch.empty(r, dtype=torch.int32, device=avail.device)
-    score = torch.empty(r, dtype=torch.float32, device=avail.device)
+    # three allocations cost less host time than one split into views
+    dev = avail.device
+    task = torch.empty(r, dtype=torch.int32, device=dev)
+    mach = torch.empty(r, dtype=torch.int32, device=dev)
+    score = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
+        tp, ip = type_id.data_ptr(), in_batch.data_ptr()
         build.check(build.load().e2c_fused_maxmin(
-            avail.data_ptr(), in_batch.data_ptr(), room.data_ptr(),
-            type_id.data_ptr(), eet_m.data_ptr(), r, n, m, t,
-            task.data_ptr(), mach.data_ptr(), score.data_ptr(), _stream()),
+            avail.data_ptr(), ip, room.data_ptr(), tp, eet_m.data_ptr(), r,
+            n, m, t, maxmin_layout(n, t, tp, ip), task.data_ptr(),
+            mach.data_ptr(), score.data_ptr(), _stream(avail)),
             "fused_maxmin")
         _count("fused_maxmin")
     return task, mach, score
@@ -179,7 +223,8 @@ def fused_start_pick(status: torch.Tensor, machine: torch.Tensor,
     if r and n_machines:
         build.check(build.load().e2c_fused_start_pick(
             status.data_ptr(), machine.data_ptr(), seq.data_ptr(), r, n,
-            n_machines, in_mq, pick.data_ptr(), has.data_ptr(), _stream()),
+            n_machines, in_mq, pick.data_ptr(), has.data_ptr(),
+            _stream(status)),
             "fused_start_pick")
         _count("fused_start_pick")
     return pick, has
@@ -206,6 +251,6 @@ def fused_event_bounds(status: torch.Tensor, arrival: torch.Tensor,
         build.check(build.load().e2c_fused_event_bounds(
             status.data_ptr(), arrival.data_ptr(), deadline.data_ptr(), r, n,
             not_arrived, live_lo, live_hi, t_arr.data_ptr(), t_dl.data_ptr(),
-            _stream()), "fused_event_bounds")
+            _stream(status)), "fused_event_bounds")
         _count("fused_event_bounds")
     return t_arr, t_dl

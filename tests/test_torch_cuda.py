@@ -8,7 +8,9 @@ JAX package, so it also runs where only PyTorch is installed:
         tests/test_torch_cuda.py
 
 Tolerance 0 for the scheduling kernels: indices, flags and the bits of
-every float (-0.0 and +0.0 differ) must be equal.  The model kernels
+every float (-0.0 and +0.0 differ) must be equal, and each case is
+launched twice with bitwise-equal results; the cases cover both layouts
+of ``masked_argmin`` and of ``fused_maxmin``.  The model kernels
 (flash attention, grouped matmul) sum in another order than their plain
 versions: atol = rtol = 2e-5 (f32) and 2e-2 (bf16) for flash attention,
 atol = 2e-5 * D and rtol = 2e-5 (f32), 2e-2 * D and 2e-2 (bf16) for the
@@ -50,9 +52,13 @@ def _cases(name: str) -> dict:
     rng = np.random.default_rng(7)
     f32, i32 = np.float32, np.int32
     if name == "masked_argmin":
+        # the engine's (R, 1, M) rows, and len = N*M either side of the
+        # warp/CTA threshold (1024), with and without len % 4 == 0
         cases = {f"random {s}": ((rng.integers(0, 6, s) * 0.5).astype(f32),
                                  rng.random(s) < 0.6)
-                 for s in ((64, 1, 32), (5, 33, 7), (3, 1, 1))}
+                 for s in ((4096, 1, 32), (64, 1, 32), (5, 33, 7), (3, 1, 1),
+                           (6, 1, 30), (5, 1, 1023), (5, 32, 32),
+                           (5, 1, 1025), (3, 64, 33))}
         s = (4, 24, 4)
         one_masked = np.ones(s, bool)
         one_masked[:, 9, 2] = False
@@ -62,7 +68,9 @@ def _cases(name: str) -> dict:
             "empty mask": (rng.random(s).astype(f32), np.zeros(s, bool)),
             "+inf valid": (np.full(s, np.inf, f32), one_masked),
             "valid >= BIG": (np.full(s, 2e30, f32), one_masked),
-            "-0.0/+0.0": (z, np.ones(s, bool))})
+            "-0.0/+0.0": (z, np.ones(s, bool)),
+            "all cells +inf, none masked": (np.full(s, np.inf, f32),
+                                            np.ones(s, bool))})
         return {k: (v, {}) for k, v in cases.items()}
     if name in ("fused_minmin", "fused_maxmin"):
         def inst(r, n, m, t):
@@ -98,6 +106,13 @@ def _cases(name: str) -> dict:
                                                   e),
                 "scores below -BIG": (np.full_like(a, -np.inf), ib, rm, tid,
                                       e)})
+            # either side of the per-type / per-task choice: M past one
+            # warp, T = 1, T = 64, T > N, a type table past 48 KB, N % 4
+            # != 0, and the captured main-path call
+            cases.update({f"random {s}": inst(*s) for s in (
+                (6, 40, 33, 3), (6, 40, 64, 5), (6, 40, 6, 1),
+                (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6145),
+                (4, 1001, 33, 3), (409, 1024, 32, 4))})
         return {k: (v, {}) for k, v in cases.items()}
     if name == "fused_start_pick":
         cases = {}
@@ -135,11 +150,28 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
                 if isinstance(a, np.ndarray) else a for a in args]
         before = TK.launches[name]
         got = kernel(*args, **kw)
+        again = kernel(*args, **kw)
         torch.cuda.synchronize()
-        assert TK.launches[name] == before + 1, case
+        assert TK.launches[name] == before + 2, case
         want = plain(*args, **kw)
-        for g, w in zip(got, want):
+        for g, a, w in zip(got, again, want):
             assert torch.equal(_bits(g), _bits(w)), f"{name} {case}"
+            assert torch.equal(_bits(g), _bits(a)), f"{name} {case} again"
+
+
+def test_cuda_masked_argmin_unaligned_rows(cuda_device):
+    """Rows that start off a 16-byte boundary take the warp layout's
+    plain loads, and agree bit for bit all the same."""
+    g = torch.Generator().manual_seed(3)
+    flat = (torch.randint(0, 6, (64 * 32 + 1,), generator=g) * 0.5)
+    values = flat.to(cuda_device)[1:].view(64, 1, 32)
+    mask = (torch.rand(64 * 32 + 1, generator=g) < 0.6).to(
+        cuda_device)[1:].view(64, 1, 32)
+    assert TK.argmin_layout(32, values.data_ptr(), mask.data_ptr()) == 1
+    got = TK.masked_argmin(values, mask)
+    want = TREF.masked_argmin_ref(values, mask)
+    for gg, w in zip(got, want):
+        assert torch.equal(_bits(gg), _bits(w))
 
 
 def test_cuda_wrappers_reject_wrong_dtypes(cuda_device):
