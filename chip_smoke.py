@@ -4,8 +4,6 @@
 
     python3 chip_smoke.py --paths serve --serve-tiny   # short first call
     python3 chip_smoke.py --replicas 512 --flat-replicas 512   # short
-    python3 chip_smoke.py --paths flat,scenario --src DIR  # another
-                                     # checkout's port, this script's timings
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
@@ -226,11 +224,13 @@ def kernel_cases(dev):
                   (torch.full((r, m), float("-inf"), device=dev), base[1],
                    base[2], base[3], base[4]), {}))
     # either side of the per-type / per-task choice: M past one warp, T =
-    # 1, T = 64, T > N, a type table past 48 KB, N % 4 != 0, and the
-    # captured main-path call
+    # 1, T = 64, T > N, the largest type table that fits in 48 KB
+    # (TYPE_TABLE_MAX) and one type more, N % 4 != 0, and the captured
+    # main-path call
     for r, n, m, t in ((6, 40, 33, 3), (6, 40, 64, 5), (6, 40, 6, 1),
-                       (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6145),
-                       (4, 1001, 33, 3), (409, 1024, 32, 4)):
+                       (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6096),
+                       (2, 7000, 4, 6097), (4, 1001, 33, 3),
+                       (409, 1024, 32, 4)):
         cases.append(("fused_maxmin", f"random {r}x{n}x{m}x{t}",
                       ((rnd(r, m) * 20).floor(), rnd(r, n) < 0.5,
                        rnd(r, m) < 0.7, randint(0, t, r, n),
@@ -458,20 +458,20 @@ def time_ms(fn, sets, kw) -> float:
     return start.elapsed_time(end) / reps
 
 
-def host_us(fn, args, kw, calls: int = 1000, rounds: int = 5) -> list:
-    """Host time per wrapper call, in us, for each of ``rounds`` rounds:
-    ``time.perf_counter`` around ``calls`` back-to-back calls on the same
+def host_us(fn, args, kw) -> list:
+    """Host time per wrapper call, in us, for each of 5 rounds:
+    ``time.perf_counter`` around 1000 back-to-back calls on the same
     inputs, no synchronisation inside the loop (the device keeps up when
     its time per call is the smaller).  The host's other tenants make
-    single rounds spread; callers report the median."""
+    single rounds spread 2x, hence 5 rounds; callers report the median."""
     fn(*args, **kw)
     torch.cuda.synchronize()
     out = []
-    for _ in range(rounds):
+    for _ in range(5):
         t0 = time.perf_counter()
-        for _ in range(calls):
+        for _ in range(1000):
             fn(*args, **kw)
-        out.append((time.perf_counter() - t0) / calls * 1e6)
+        out.append((time.perf_counter() - t0) / 1000 * 1e6)
         torch.cuda.synchronize()
     return out
 
@@ -486,17 +486,11 @@ def device_activity(prof) -> list:
     return out
 
 
-def device_ms(fn, sets, kw, kernels_per_call: int | None = None) -> float:
+def device_ms(fn, sets, kw) -> float:
     """Device time per call: the summed durations of every kernel the
-    calls ran, from the profiler, over the number of calls.  The profiler
-    now and then returns a window without device activity; such a window
-    is measured again, up to three windows in all (0.0 if none passed).
-    It may also lose a few records of a window (2 to 4 of 50 to 205
-    kernels on an H100), so for a function that launches
-    ``kernels_per_call`` kernels a call the time is the mean over the
-    kernels the window recorded, times that count; a window that recorded
-    more kernels than were launched, or fewer than nine in ten, is
-    measured again."""
+    calls ran, from the profiler.  The profiler now and then returns a
+    window without device activity; such a window is measured again, up
+    to three windows in all (0.0 if none saw device activity)."""
     from torch.profiler import ProfilerActivity, profile
     reps, run = calls(fn, sets, kw)
     run()
@@ -505,18 +499,9 @@ def device_ms(fn, sets, kw, kernels_per_call: int | None = None) -> float:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        spans = device_activity(prof)
-        total = sum(end - start for _, start, end in spans)
-        if total <= 0:
-            continue
-        if kernels_per_call is None:
+        total = sum(end - start for _, start, end in device_activity(prof))
+        if total > 0:
             return total / reps / 1e3
-        launched = kernels_per_call * reps
-        if launched != len(spans):
-            log("6 timings", f"a profiled window recorded {len(spans)} of "
-                f"{launched} kernels")
-        if 0.9 * launched <= len(spans) <= launched:
-            return total / len(spans) * kernels_per_call / 1e3
     return 0.0
 
 
@@ -600,13 +585,10 @@ def bound(name: str, args, kw) -> tuple[float, str, int, int]:
     return by_bytes, "bytes", moved, ops
 
 
-def launch_floor(build, K, name: str, args) -> dict | None:
+def launch_floor(build, K, name: str, args) -> dict:
     """An empty kernel (``e2c_noop``) launched at the grid the kernel's
     captured call launches: device and stream ms and host us per call,
-    the floor a launch of that size cannot go under.  None for a version
-    of the port without it (``--src`` of an older checkout)."""
-    if "e2c_noop" not in build.LIBRARIES["sched_argmin"]["signatures"]:
-        return None
+    the floor a launch of that size cannot go under."""
     r = args[0].shape[0]
     blocks = r
     if name == "masked_argmin" and K.argmin_layout(
@@ -616,7 +598,7 @@ def launch_floor(build, K, name: str, args) -> dict | None:
 
     def noop():
         build.check(lib.e2c_noop(blocks, 256, K._stream(args[0])), "noop")
-    floor = {"grid": f"{blocks}x256", "ms": device_ms(noop, [()], {}, 1),
+    floor = {"grid": f"{blocks}x256", "ms": device_ms(noop, [()], {}),
              "stream_ms": time_ms(noop, [()], {})}
     host = host_us(noop, (), {})
     floor["host_us"] = float(np.median(host))
@@ -646,14 +628,14 @@ def timings(K, KREF, build, launches, captured, errs, paths=PATHS) -> list:
         sets = cold_sets(args)
         stream_ms = time_ms(kernel, sets, kw)
         plain_stream_ms = time_ms(plain, sets, kw)
-        ms = device_ms(kernel, sets, kw, 1)
+        ms = device_ms(kernel, sets, kw)
         plain_ms = device_ms(plain, sets, kw)
         del sets
         host_rounds = host_us(kernel, args, kw)
         host = float(np.median(host_rounds))
         floor = launch_floor(build, K, name, args)
         K.launches.update(saved)
-        if ms <= 0.0 or plain_ms <= 0.0 or (floor and floor["ms"] <= 0.0):
+        if ms <= 0.0 or plain_ms <= 0.0 or floor["ms"] <= 0.0:
             raise AssertionError(f"{name}: the profiler saw no device time")
         bound_ms, bound_by, moved, ops = bound(name, args, kw)
         shape = ", ".join("x".join(map(str, a.shape)) for a in args
@@ -1311,12 +1293,7 @@ def main() -> int:
     ap.add_argument("--serve-tiny", action="store_true",
                     help="serve the apps' tiny configurations (prompt 40, "
                     "6 tokens) instead of the full-width ones")
-    ap.add_argument("--src", default=ROOT,
-                    help="checkout whose src/repro_torch to drive (default "
-                    "this one): times another version of the port with "
-                    "this script's measurements")
     a = ap.parse_args()
-    sys.path.insert(0, os.path.join(os.path.abspath(a.src), "src"))
     paths = [p for p in a.paths.split(",") if p]
     if not set(paths) <= set(ALL_PATHS):
         ap.error(f"--paths takes {ALL_PATHS}")
@@ -1346,7 +1323,7 @@ def main() -> int:
     card = gpu_line()
     log("1 device", f"{name} x{torch.cuda.device_count()}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}; TF32 off for "
-        f"matmul and cuDNN; the port from {os.path.dirname(K.__file__)}")
+        f"matmul and cuDNN")
     print(card, flush=True)
 
     t0 = time.perf_counter()

@@ -716,7 +716,8 @@ int e2c_fused_maxmin(const void* avail, const void* in_batch,
     fused_maxmin_task_kernel<<<r, kThreads, smem, s>>>(
         av, inb, rm, tid, eet, n, m, t, task, mach, score);
   } else {
-    // the wrapper keeps the (minimum, machine) table within 48 KB
+    // the wrapper keeps the (minimum, machine) table and block_argmax3's
+    // 384 static bytes within 48 KB, so no opt-in is needed
     const size_t smem = static_cast<size_t>(t) * (sizeof(float) +
                                                   sizeof(int));
     if (layout == 2)

@@ -107,12 +107,13 @@ def _cases(name: str) -> dict:
                 "scores below -BIG": (np.full_like(a, -np.inf), ib, rm, tid,
                                       e)})
             # either side of the per-type / per-task choice: M past one
-            # warp, T = 1, T = 64, T > N, a type table past 48 KB, N % 4
-            # != 0, and the captured main-path call
+            # warp, T = 1, T = 64, T > N, the largest type table that fits
+            # in 48 KB (TYPE_TABLE_MAX) and one type more, N % 4 != 0, and
+            # the captured main-path call
             cases.update({f"random {s}": inst(*s) for s in (
                 (6, 40, 33, 3), (6, 40, 64, 5), (6, 40, 6, 1),
-                (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6145),
-                (4, 1001, 33, 3), (409, 1024, 32, 4))})
+                (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6096),
+                (2, 7000, 4, 6097), (4, 1001, 33, 3), (409, 1024, 32, 4))})
         return {k: (v, {}) for k, v in cases.items()}
     if name == "fused_start_pick":
         cases = {}

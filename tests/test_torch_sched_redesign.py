@@ -279,7 +279,11 @@ def test_layout_choices():
     assert TK.maxmin_layout(1024, 4, 0, 0) == 2
     assert TK.maxmin_layout(1022, 4, 0, 0) == 1
     assert TK.maxmin_layout(7, 9, 0, 0) == 0         # T > N
+    assert TK.maxmin_layout(10**5, TK.TYPE_TABLE_MAX, 0, 0) == 2
     assert TK.maxmin_layout(10**5, TK.TYPE_TABLE_MAX + 1, 0, 0) == 0
+    # the table and block_argmax3's 3 x 32 x 4 static bytes fit in the
+    # 48 KB a launch gets without opting in to more
+    assert TK.TYPE_TABLE_MAX * 8 + 3 * 32 * 4 <= 48 * 1024
 
 
 # ---------------------------------------------------------------------------
