@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      ``src/repro_torch/kernels/csrc``, one nvcc each, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card:
      the five scheduling kernels bitwise, on random and edge-case inputs
-     (both layouts of ``masked_argmin`` and ``fused_maxmin``), each case
-     launched twice and the two results bitwise equal;
+     (both layouts of ``masked_argmin``, ``fused_minmin``,
+     ``fused_maxmin`` and ``fused_start_pick``), each case launched twice
+     and the two results bitwise equal;
      flash attention at atol = rtol = 2e-5 (f32) / 2e-2 (bf16) and the
      grouped matmul at atol = 2e-5 D, rtol = 2e-5 (f32) / 2e-2 D, 2e-2
      (bf16) with its padding rows exactly 0 (the tolerances of
@@ -223,23 +224,56 @@ def kernel_cases(dev):
     cases.append(("fused_maxmin", "scores below -BIG",
                   (torch.full((r, m), float("-inf"), device=dev), base[1],
                    base[2], base[3], base[4]), {}))
-    # either side of the per-type / per-task choice: M past one warp, T =
-    # 1, T = 64, T > N, the largest type table that fits in 48 KB
-    # (TYPE_TABLE_MAX) and one type more, N % 4 != 0, and the captured
-    # main-path call
-    for r, n, m, t in ((6, 40, 33, 3), (6, 40, 64, 5), (6, 40, 6, 1),
-                       (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6096),
-                       (2, 7000, 4, 6097), (4, 1001, 33, 3),
-                       (409, 1024, 32, 4)):
-        cases.append(("fused_maxmin", f"random {r}x{n}x{m}x{t}",
-                      ((rnd(r, m) * 20).floor(), rnd(r, n) < 0.5,
-                       rnd(r, m) < 0.7, randint(0, t, r, n),
+    # completions +0.0, -0.0, +0.0, ... along every type row: Min-Min
+    # takes machine 0's +0.0, Max-Min's row minimum is -0.0
+    pm = torch.zeros(r, t, m, device=dev)
+    pm[..., 1::2] = -0.0
+    for name in ("fused_minmin", "fused_maxmin"):
+        cases.append((name, "type rows [+0.0, -0.0, ...]",
+                      (torch.full((r, m), -0.0, device=dev), base[1],
+                       torch.ones_like(base[2]), base[3], pm), {}))
+    # both pairs either side of the per-type / per-task choice: M past one
+    # warp, T = 1, T = 64, T > N, the largest type table that fits in 48
+    # KB (TYPE_TABLE_MAX) and one type more, N % 4 != 0, and the captured
+    # main-path call; then rows off a 16-byte boundary
+    for name in ("fused_minmin", "fused_maxmin"):
+        for r, n, m, t in ((6, 40, 33, 3), (6, 40, 64, 5), (6, 40, 6, 1),
+                           (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6096),
+                           (2, 7000, 4, 6097), (4, 1001, 33, 3),
+                           (409, 1024, 32, 4)):
+            cases.append((name, f"random {r}x{n}x{m}x{t}",
+                          ((rnd(r, m) * 20).floor(), rnd(r, n) < 0.5,
+                           rnd(r, m) < 0.7, randint(0, t, r, n),
+                           (rnd(r, t, m) * 9).floor() + 0.5), {}))
+        r, n, m, t = 64, 1024, 32, 4
+        cases.append((name, "rows off a 16-byte boundary",
+                      ((rnd(r, m) * 20).floor(),
+                       (rnd(r * n + 1) < 0.5)[1:].view(r, n),
+                       rnd(r, m) < 0.7,
+                       randint(0, t, r * n + 1)[1:].view(r, n),
                        (rnd(r, t, m) * 9).floor() + 0.5), {}))
-    # fused_start_pick
-    for r, n, m in ((4096, 1024, 32), (5, 1000, 7), (3, 1, 1)):
+    # fused_start_pick: the captured main-path shape, N % 4 != 0, the
+    # most machines the per-warp tables take (PICK_WARP_MAX) and one more;
+    # machines -1 and M are queued on no machine
+    for r, n, m in ((4096, 1024, 32), (5, 1000, 7), (3, 1, 1), (6, 1001, 32),
+                    (16, 1024, 767), (16, 1024, 768)):
         cases.append(("fused_start_pick", f"random {r}x{n}x{m}",
                       (randint(0, 8, r, n), randint(-1, m + 1, r, n),
                        randint(0, 1 << 20, r, n), m), {"in_mq": 2}))
+    r, n, m = 64, 1024, 32
+    cases.append(("fused_start_pick", "rows off a 16-byte boundary",
+                  (randint(0, 8, r * n + 1)[1:].view(r, n),
+                   randint(-1, m + 1, r, n), randint(0, 1 << 20, r, n), m),
+                  {"in_mq": 2}))
+    dense = torch.full((r, n), 2, dtype=torch.int32, device=dev)
+    on_3 = torch.full((r, n), 3, dtype=torch.int32, device=dev)
+    cases.append(("fused_start_pick", "every task queued on machine 3",
+                  (dense, on_3, randint(-1000, 1000, r, n), m),
+                  {"in_mq": 2}))
+    cases.append(("fused_start_pick", "every task queued on machine 3 at "
+                  "seq INT_MAX",
+                  (dense, on_3, torch.full_like(on_3, 2**31 - 1), m),
+                  {"in_mq": 2}))
     r, n, m = 4, 64, 5
     st = torch.full((r, n), 2, dtype=torch.int32, device=dev)
     cases.append(("fused_start_pick", "equal seqs (lowest id wins)",
@@ -489,13 +523,14 @@ def device_activity(prof) -> list:
 def device_ms(fn, sets, kw) -> float:
     """Device time per call: the summed durations of every kernel the
     calls ran, from the profiler.  The profiler now and then returns a
-    window without device activity; such a window is measured again, up
-    to three windows in all (0.0 if none saw device activity)."""
+    window without device activity (three in a row once, for 50 empty
+    kernels); such a window is measured again, up to ten windows in all
+    (0.0 if none saw device activity)."""
     from torch.profiler import ProfilerActivity, profile
     reps, run = calls(fn, sets, kw)
     run()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(10):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
@@ -592,7 +627,8 @@ def launch_floor(build, K, name: str, args) -> dict:
     r = args[0].shape[0]
     blocks = r
     if name == "masked_argmin" and K.argmin_layout(
-            args[0][0].numel(), 0, 0) != 0:
+            args[0][0].numel(), 0, 0) != 0 or name == "fused_start_pick" \
+            and K.pick_layout(args[0].shape[1], args[3], 0) != 0:
         blocks = -(-r // 8)                     # 8 replicas a CTA
     lib = build.load()
 

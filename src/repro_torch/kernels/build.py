@@ -45,13 +45,18 @@ LIBRARIES = {
         "signatures": {
             # values, mask, r, len, layout, idx, min, stream
             "e2c_masked_argmin": (_P, _P, _I, _I, _I, _P, _P, _P),
-            "e2c_fused_minmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                 _P),
+            # avail, in_batch, room, type_id, eet_m, r, n, m, t, layout,
+            # idx, min, stream
+            "e2c_fused_minmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                 _P, _P),
             # avail, in_batch, room, type_id, eet_m, r, n, m, t, layout,
             # task, machine, score, stream
             "e2c_fused_maxmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                  _P, _P, _P),
-            "e2c_fused_start_pick": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+            # status, machine, seq, r, n, m, in_mq, layout, pick, has,
+            # stream
+            "e2c_fused_start_pick": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                     _P),
             "e2c_fused_event_bounds": (_P, _P, _P, _I, _I, _I, _I, _I, _P,
                                        _P, _P),
             # an empty kernel: blocks, threads, stream

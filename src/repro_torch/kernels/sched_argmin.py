@@ -11,7 +11,7 @@ What bounds them on the H100 is bytes, and at the engine's shapes launch
 latency below that: a call moves a few KB to a few hundred KB per
 replica and does one or two operations per byte.  So the designs aim at
 one round trip to memory, few barriers and one wave of CTAs, and the
-wrappers at little host work per call.  Two kernels have two layouts,
+wrappers at little host work per call.  Four kernels have two layouts,
 which the wrapper picks on the host from the shapes:
 
 * ``masked_argmin``: rows of ``len = N*M <= ARGMIN_WARP_MAX`` (the
@@ -19,12 +19,19 @@ which the wrapper picks on the host from the shapes:
   each lane a contiguous chunk, no shared memory and no barrier, with
   16-byte loads where ``len % 4 == 0`` and the rows are aligned; longer
   rows take a 256-thread CTA per replica.
-* ``fused_maxmin``: a task's row minimum depends only on its type, so
-  where ``T <= N`` and the T-entry (minimum, machine) table fits in
-  shared memory (``T <= TYPE_TABLE_MAX``) a CTA per replica reduces each
-  type over the machines once and then scans the tasks: T*M + N work in
-  place of N*M.  Otherwise each thread walks whole task rows, as the
-  per-task layout did before.
+* ``fused_minmin`` and ``fused_maxmin`` (``type_layout``): a task's
+  completion row depends only on its type, so where ``T <= N`` and the
+  T-entry (minimum, machine) table fits in shared memory (``T <=
+  TYPE_TABLE_MAX``) a CTA per replica reduces each type over the
+  machines once and then scans the tasks, 4 a thread with 16-byte loads
+  where ``N % 4 == 0`` and the rows are aligned: T*M + N work in place
+  of N*M.  Otherwise each thread walks whole task rows.
+* ``fused_start_pick`` (``pick_layout``): where the 8 per-warp tables of
+  M + 1 64-bit keys fit in 48 KB (``M <= PICK_WARP_MAX``), a warp per
+  replica, 8 replicas a CTA, reads the statuses whole (16-byte loads
+  where ``N % 4 == 0`` and the rows are aligned) and machine and seq
+  only for queued tasks; more machines take a 256-thread CTA per
+  replica.
 
 Every wrapper takes a leading replica axis R and computes, per replica,
 what the Pallas function computes for one.  A tensor on the CPU goes to
@@ -48,6 +55,9 @@ ARGMIN_WARP_MAX = 1024          # longest row a warp per replica takes
 # (f32, i32) type entries that fit, beside the 384 static bytes of the
 # kernel's block reduction, in the 48 KB a launch gets without opting in
 TYPE_TABLE_MAX = (48 * 1024 - 384) // 8
+# machines whose 64-bit keys, and a spare key for machines outside [0, M),
+# fit for each of a CTA's 8 warps in 48 KB
+PICK_WARP_MAX = 48 * 1024 // (8 * 8) - 1
 
 launches = dict.fromkeys(NAMES, 0)
 
@@ -99,14 +109,23 @@ def argmin_layout(length: int, values_ptr: int, mask_ptr: int) -> int:
         and mask_ptr % 4 == 0 else 1
 
 
-def maxmin_layout(n: int, t: int, type_ptr: int, in_batch_ptr: int) -> int:
-    """``fused_maxmin``'s layout for N tasks of T types: 0 per task, 1 per
-    type, 2 per type with 16-byte task loads (``n % 4 == 0`` and aligned
-    rows)."""
+def type_layout(n: int, t: int, type_ptr: int, in_batch_ptr: int) -> int:
+    """``fused_minmin``'s and ``fused_maxmin``'s layout for N tasks of T
+    types: 0 per task, 1 per type, 2 per type with 16-byte task loads
+    (``n % 4 == 0`` and aligned rows)."""
     if t > n or t > TYPE_TABLE_MAX:
         return 0
     return 2 if n % 4 == 0 and type_ptr % 16 == 0 \
         and in_batch_ptr % 4 == 0 else 1
+
+
+def pick_layout(n: int, m: int, status_ptr: int) -> int:
+    """``fused_start_pick``'s layout for N tasks on M machines: 0 a CTA
+    per replica, 1 a warp per replica, 2 a warp per replica with 16-byte
+    status loads (``n % 4 == 0`` and aligned rows)."""
+    if m > PICK_WARP_MAX:
+        return 0
+    return 2 if n % 4 == 0 and status_ptr % 16 == 0 else 1
 
 
 def masked_argmin(values: torch.Tensor, mask: torch.Tensor
@@ -162,9 +181,10 @@ def fused_minmin(avail: torch.Tensor, in_batch: torch.Tensor,
     idx = torch.empty(r, dtype=torch.int32, device=avail.device)
     vmin = torch.empty(r, dtype=torch.float32, device=avail.device)
     if r:
+        tp, ip = type_id.data_ptr(), in_batch.data_ptr()
         build.check(build.load().e2c_fused_minmin(
-            avail.data_ptr(), in_batch.data_ptr(), room.data_ptr(),
-            type_id.data_ptr(), eet_m.data_ptr(), r, n, m, t, idx.data_ptr(),
+            avail.data_ptr(), ip, room.data_ptr(), tp, eet_m.data_ptr(), r,
+            n, m, t, type_layout(n, t, tp, ip), idx.data_ptr(),
             vmin.data_ptr(), _stream(avail)), "fused_minmin")
         _count("fused_minmin")
     return idx, vmin
@@ -199,7 +219,7 @@ def fused_maxmin(avail: torch.Tensor, in_batch: torch.Tensor,
         tp, ip = type_id.data_ptr(), in_batch.data_ptr()
         build.check(build.load().e2c_fused_maxmin(
             avail.data_ptr(), ip, room.data_ptr(), tp, eet_m.data_ptr(), r,
-            n, m, t, maxmin_layout(n, t, tp, ip), task.data_ptr(),
+            n, m, t, type_layout(n, t, tp, ip), task.data_ptr(),
             mach.data_ptr(), score.data_ptr(), _stream(avail)),
             "fused_maxmin")
         _count("fused_maxmin")
@@ -223,11 +243,11 @@ def fused_start_pick(status: torch.Tensor, machine: torch.Tensor,
     has = torch.empty((r, n_machines), dtype=torch.bool,
                       device=status.device)
     if r and n_machines:
+        sp = status.data_ptr()
         build.check(build.load().e2c_fused_start_pick(
-            status.data_ptr(), machine.data_ptr(), seq.data_ptr(), r, n,
-            n_machines, in_mq, pick.data_ptr(), has.data_ptr(),
-            _stream(status)),
-            "fused_start_pick")
+            sp, machine.data_ptr(), seq.data_ptr(), r, n, n_machines, in_mq,
+            pick_layout(n, n_machines, sp), pick.data_ptr(), has.data_ptr(),
+            _stream(status)), "fused_start_pick")
         _count("fused_start_pick")
     return pick, has
 

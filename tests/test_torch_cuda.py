@@ -10,7 +10,8 @@ JAX package, so it also runs where only PyTorch is installed:
 Tolerance 0 for the scheduling kernels: indices, flags and the bits of
 every float (-0.0 and +0.0 differ) must be equal, and each case is
 launched twice with bitwise-equal results; the cases cover both layouts
-of ``masked_argmin`` and of ``fused_maxmin``.  The model kernels
+of ``masked_argmin``, ``fused_minmin``, ``fused_maxmin`` and
+``fused_start_pick``.  The model kernels
 (flash attention, grouped matmul) sum in another order than their plain
 versions: atol = rtol = 2e-5 (f32) and 2e-2 (bf16) for flash attention,
 atol = 2e-5 * D and rtol = 2e-5 (f32), 2e-2 * D and 2e-2 (bf16) for the
@@ -91,6 +92,12 @@ def _cases(name: str) -> dict:
             ">= BIG and +inf": (a, ib, rm, tid, big),
             "-0.0/+0.0": (np.full_like(a, -0.0), ib, rm, tid,
                           np.zeros_like(e))})
+        # completions +0.0, -0.0, ... along every type row: Min-Min takes
+        # machine 0's +0.0, Max-Min's row minimum is -0.0
+        pm = np.zeros_like(e)
+        pm[..., 1::2] = -0.0
+        cases["type rows [+0.0, -0.0, ...]"] = (
+            np.full_like(a, -0.0), ib, np.ones_like(rm), tid, pm)
         if name == "fused_maxmin":
             signed = np.zeros_like(e)
             signed[..., ::2] = -0.0
@@ -106,18 +113,23 @@ def _cases(name: str) -> dict:
                                                   e),
                 "scores below -BIG": (np.full_like(a, -np.inf), ib, rm, tid,
                                       e)})
-            # either side of the per-type / per-task choice: M past one
-            # warp, T = 1, T = 64, T > N, the largest type table that fits
-            # in 48 KB (TYPE_TABLE_MAX) and one type more, N % 4 != 0, and
-            # the captured main-path call
-            cases.update({f"random {s}": inst(*s) for s in (
-                (6, 40, 33, 3), (6, 40, 64, 5), (6, 40, 6, 1),
-                (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6096),
-                (2, 7000, 4, 6097), (4, 1001, 33, 3), (409, 1024, 32, 4))})
+        # either side of the per-type / per-task choice: M past one warp,
+        # T = 1, T = 64, T > N, the largest type table that fits in 48 KB
+        # (TYPE_TABLE_MAX) and one type more, N % 4 != 0, and the captured
+        # main-path call
+        cases.update({f"random {s}": inst(*s) for s in (
+            (6, 40, 33, 3), (6, 40, 64, 5), (6, 40, 6, 1),
+            (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6096),
+            (2, 7000, 4, 6097), (4, 1001, 33, 3), (409, 1024, 32, 4))})
         return {k: (v, {}) for k, v in cases.items()}
     if name == "fused_start_pick":
+        # the captured main-path shape and N % 4 != 0, the most machines
+        # the per-warp tables take (PICK_WARP_MAX) and one more; machines
+        # -1 and M are queued on no machine
         cases = {}
-        for r, n, m in ((64, 1024, 32), (5, 1000, 7), (3, 1, 1)):
+        for r, n, m in ((64, 1024, 32), (5, 1000, 7), (3, 1, 1),
+                        (4096, 1024, 32), (6, 1001, 32), (16, 1024, 767),
+                        (16, 1024, 768)):
             cases[f"random {r}x{n}x{m}"] = (
                 rng.integers(0, 8, (r, n)).astype(i32),
                 rng.integers(-1, m + 1, (r, n)).astype(i32),
@@ -127,6 +139,11 @@ def _cases(name: str) -> dict:
         cases["INT_MAX seqs"] = (rng.integers(1, 4, (4, 64)).astype(i32),
                                  rng.integers(0, 5, (4, 64)).astype(i32),
                                  seq, 5)
+        dense, on_3 = np.full((8, 1000), 2, i32), np.full((8, 1000), 3, i32)
+        cases["every task queued on machine 3"] = (
+            dense, on_3, rng.integers(-1000, 1000, (8, 1000)).astype(i32), 32)
+        cases["every task queued on machine 3 at seq INT_MAX"] = (
+            dense, on_3, np.full_like(on_3, 2**31 - 1), 32)
         return {k: (v, {"in_mq": 2}) for k, v in cases.items()}
     kw = {"not_arrived": 0, "live_lo": 1, "live_hi": 3}
     cases = {}
@@ -173,6 +190,38 @@ def test_cuda_masked_argmin_unaligned_rows(cuda_device):
     want = TREF.masked_argmin_ref(values, mask)
     for gg, w in zip(got, want):
         assert torch.equal(_bits(gg), _bits(w))
+
+
+def test_cuda_fused_unaligned_rows(cuda_device):
+    """Min-Min, Max-Min and the start pick on rows that start off a
+    16-byte boundary: the per-type and warp layouts' plain loads."""
+    g = torch.Generator().manual_seed(4)
+    r, n, m, t = 64, 1024, 32, 4
+
+    def off(x):                      # x[1:] of one more element: 4 bytes off
+        return x.to(cuda_device)[1:].view(r, n)
+    avail = torch.randint(0, 20, (r, m), generator=g).float().to(cuda_device)
+    in_batch = off(torch.rand(r * n + 1, generator=g) < 0.5)
+    room = (torch.rand(r, m, generator=g) < 0.7).to(cuda_device)
+    type_id = off(torch.randint(0, t, (r * n + 1,), generator=g,
+                                dtype=torch.int32))
+    eet = (torch.randint(1, 9, (r, t, m), generator=g) * 0.5).to(cuda_device)
+    assert TK.type_layout(n, t, type_id.data_ptr(), in_batch.data_ptr()) == 1
+    status = off(torch.randint(0, 8, (r * n + 1,), generator=g,
+                               dtype=torch.int32))
+    machine = torch.randint(-1, m + 1, (r, n), generator=g,
+                            dtype=torch.int32).to(cuda_device)
+    seq = torch.randint(0, 1 << 20, (r, n), generator=g,
+                        dtype=torch.int32).to(cuda_device)
+    assert TK.pick_layout(n, m, status.data_ptr()) == 1
+    for name, args, kw in (
+            ("fused_minmin", (avail, in_batch, room, type_id, eet), {}),
+            ("fused_maxmin", (avail, in_batch, room, type_id, eet), {}),
+            ("fused_start_pick", (status, machine, seq, m), {"in_mq": 2})):
+        got = getattr(TK, name)(*args, **kw)
+        want = getattr(TREF, name + "_ref")(*args, **kw)
+        for gg, w in zip(got, want):
+            assert torch.equal(_bits(gg), _bits(w)), name
 
 
 def test_cuda_wrappers_reject_wrong_dtypes(cuda_device):

@@ -1,5 +1,6 @@
-"""CPU models of the reduction orders of ``masked_argmin`` and
-``fused_maxmin`` in ``repro_torch/kernels/csrc/sched_argmin.cu``.
+"""CPU models of the reduction orders of ``masked_argmin``,
+``fused_minmin``, ``fused_maxmin`` and ``fused_start_pick`` in
+``repro_torch/kernels/csrc/sched_argmin.cu``.
 
 The CUDA kernels run only on a card, so each model below follows its
 kernel's order in plain PyTorch, and is held bit for bit (tolerance 0:
@@ -15,12 +16,25 @@ Pallas kernel in interpret mode:
   machines in chunks of 32, the two-``redux.sync`` (key, machine)
   reduction, the -0.0 rule), then the task scan, 4 tasks a thread, with
   out-of-batch tasks at -BIG on machine 0, and the CTA's argmax in the
-  same two-step reduction on complemented keys.
+  same two-step reduction on complemented keys;
+* ``fused_minmin``: the same per-type phase keeping the winning cell's
+  own bits (+0.0 for a row [+0.0, -0.0]), the same scan as an argmin
+  over (value, task * M + machine), out-of-batch tasks at (BIG, task *
+  M), and the CTA's argmin in the two-step reduction;
+* ``fused_start_pick``: the layout the wrapper picks (a warp per replica,
+  the lanes over the statuses in groups of 4 or 1, or a 256-thread CTA),
+  each task visited once, machine and seq read only for queued tasks, a
+  running per-machine minimum of the 64-bit (seq, id) key (machines
+  outside [0, M) in a spare entry; the order in which a lane's queued
+  tasks reach the table does not change a minimum), then pick 0 where
+  the least seq is INT_MAX or nothing is queued: such a column holds
+  INT_MAX in every row, so its first row is its argmin.
 
 A small property test draws R, N, M, T (M > 32, T = 1, T > N and N = 1
 included) and values from {-0.0, +0.0, halves, 2e30, +-inf}, empty batches
-and replicas without room.  ``tests/test_torch_cuda.py`` holds the
-kernels themselves to the plain versions on the card.
+and replicas without room, and statuses, machines (-1 to M) and seqs
+(INT_MAX and negative ones among them).  ``tests/test_torch_cuda.py``
+holds the kernels themselves to the plain versions on the card.
 """
 from __future__ import annotations
 
@@ -29,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 from _hyp import given, settings, st  # hypothesis optional (dev extra)
-from test_torch_kernels_ref import ARGMIN, BN, MAXMIN, _same, _t
+from test_torch_kernels_ref import ARGMIN, BN, FUSED, MAXMIN, PICK, _same, _t
 
 from repro.kernels import ref as JREF
 from repro.kernels import sched_argmin as JK
@@ -52,11 +66,12 @@ def _argmax_better(v, i, bv, bi):
     return (v > bv) | ((v == bv) & (i < bi))
 
 
-def _scan(cells, value, ok, payload, better, init):
+def _scan(cells, value, ok, payload, better, init, index=None):
     """Each thread's in-order scan.  ``cells`` (P, K): thread p's cell
     indices in its scan order, -1 past its end; ``value``/``ok``/
-    ``payload`` map cell indices (P,) to (R, P) tensors.  -> per-thread
-    (value, index, payload, any) of shape (R, P)."""
+    ``payload`` (and ``index``, the cell index by default) map cell
+    indices (P,) to (R, P) tensors.  -> per-thread (value, index,
+    payload, any) of shape (R, P)."""
     r = ok(cells[:, 0].clamp(min=0)).shape[0]
     p = cells.shape[0]
     bv = torch.full((r, p), init, dtype=torch.float32)
@@ -68,9 +83,10 @@ def _scan(cells, value, ok, payload, better, init):
         jj = j.clamp(min=0)
         live = (j >= 0)[None, :]
         x = value(jj)
-        take = live & better(x, j[None, :], bv, bi)
+        idx = j[None, :] if index is None else index(jj)
+        take = live & better(x, idx, bv, bi)
         bv = torch.where(take, x, bv)
-        bi = torch.where(take, j[None, :], bi)
+        bi = torch.where(take, idx, bi)
         bm = torch.where(take, payload(jj), bm)
         seen |= live & ok(jj)
     return bv, bi, bm, seen
@@ -113,16 +129,16 @@ def _redux(bv, bi, bm, largest):
             bm.gather(-1, src)[..., 0])
 
 
-def _cta_argmax(bv, bi, bm):
-    """``block_argmax3``: each warp's redux pair, then warp 0's over the
-    warps' results, lanes past the last warp at (-inf, INT_MAX, 0)."""
+def _cta_best(bv, bi, bm, largest):
+    """``block_best``: each warp's redux pair, then warp 0's over the
+    warps' results, lanes past the last warp at (-+inf, INT_MAX, 0)."""
     r = bv.shape[0]
     parts = _redux(bv.reshape(r, -1, WARP), bi.reshape(r, -1, WARP),
-                   bm.reshape(r, -1, WARP), largest=True)
+                   bm.reshape(r, -1, WARP), largest)
     pad = WARP - parts[0].shape[1]
-    fill = (float("-inf"), INT_MAX, 0)
+    fill = (float("-inf") if largest else float("inf"), INT_MAX, 0)
     return _redux(*[torch.cat([x, torch.full((r, pad), f, dtype=x.dtype)], 1)
-                    for x, f in zip(parts, fill)], largest=True)
+                    for x, f in zip(parts, fill)], largest)
 
 
 def _cta_tree(bv, bi, bm, better, init):
@@ -171,11 +187,12 @@ def masked_argmin_model(values, mask):
             torch.where(found, bv, BIG))
 
 
-def type_minima_model(avail, room, eet_m):
+def type_minima_model(avail, room, eet_m, signed_zero):
     """Phase (a) of the per-type layout: per type, a warp whose lane l
     scans machines l, l + 32, ..., then the redux pair -> (minimum (R, T)
-    f32, machine (R, T) i64); a zero minimum is -0.0 where a cell is
-    -0.0, else +0.0."""
+    f32, machine (R, T) i64).  The minimum keeps the winning cell's own
+    bits (Min-Min); with ``signed_zero`` (Max-Min) a zero minimum is -0.0
+    where a cell is -0.0, else +0.0."""
     r, t, m = eet_m.shape
     comp = torch.where(room[:, None, :], avail[:, None, :] + eet_m, BIG)
     k = -(-m // WARP)
@@ -187,39 +204,155 @@ def type_minima_model(avail, room, eet_m):
                           lambda j: torch.zeros_like(flat[:, j], dtype=int),
                           _argmin_better, float("inf"))
     v, mach, _ = _redux(bv, bi, bm, largest=False)
-    neg_zero = ((flat == 0) & torch.signbit(flat)).any(1)
-    v = torch.where(v == 0, torch.where(neg_zero, -0.0, 0.0), v)
+    if signed_zero:
+        neg_zero = ((flat == 0) & torch.signbit(flat)).any(1)
+        v = torch.where(v == 0, torch.where(neg_zero, -0.0, 0.0), v)
     return v.reshape(r, t), mach.reshape(r, t)
+
+
+def _task_cells(n, threads, per):
+    """(threads, K) task indices of each thread's scan: groups of ``per``
+    consecutive tasks, the groups strided over the threads, -1 past N."""
+    groups = -(-n // per)
+    rounds = -(-groups // threads)
+    g = torch.arange(threads)[:, None] + threads * torch.arange(rounds)
+    tasks = (per * g[:, :, None] + torch.arange(per)).reshape(threads, -1)
+    return torch.where(tasks < n, tasks, -1)
 
 
 def fused_maxmin_model(avail, in_batch, room, type_id, eet_m):
     """``fused_maxmin`` in the per-type layout's order -> (task i32,
     machine i32, score f32)."""
-    tmin, tmach = type_minima_model(avail, room, eet_m)
+    tmin, tmach = type_minima_model(avail, room, eet_m, signed_zero=True)
     n = in_batch.shape[1]
     tid = type_id.long()
     score = torch.where(in_batch, tmin.gather(1, tid), -BIG)
     mach = torch.where(in_batch, tmach.gather(1, tid), 0)
-    # 4 tasks a thread (16-byte loads) where n % 4 == 0, else 1, the
-    # threads' groups strided over the CTA
-    per = 4 if n % 4 == 0 else 1
-    groups = -(-n // per)
-    rounds = -(-groups // THREADS)
-    g = torch.arange(THREADS)[:, None] + THREADS * torch.arange(rounds)
-    tasks = (per * g[:, :, None] + torch.arange(per)).reshape(THREADS, -1)
-    tasks = torch.where(tasks < n, tasks, -1)
+    # 4 tasks a thread (16-byte loads) where n % 4 == 0, else 1
+    tasks = _task_cells(n, THREADS, 4 if n % 4 == 0 else 1)
     bv, bi, bm, _ = _scan(tasks, lambda j: score[:, j],
                           lambda j: in_batch[:, j], lambda j: mach[:, j],
                           _argmax_better, float("-inf"))
-    bv, bi, bm = _cta_argmax(bv, bi, bm)
+    bv, bi, bm = _cta_best(bv, bi, bm, largest=True)
     found = in_batch.any(1) & room.any(1)
     return (torch.where(found, bi, -1).to(torch.int32),
             torch.where(found, bm, -1).to(torch.int32),
             torch.where(found, bv, -BIG))
 
 
+def fused_minmin_model(avail, in_batch, room, type_id, eet_m):
+    """``fused_minmin`` in the per-type layout's order -> (flat idx i32,
+    min f32): an argmin over (value, task * M + machine), a task outside
+    the batch at (BIG, task * M)."""
+    m = avail.shape[1]
+    tmin, tmach = type_minima_model(avail, room, eet_m, signed_zero=False)
+    n = in_batch.shape[1]
+    tid = type_id.long()
+    value = torch.where(in_batch, tmin.gather(1, tid), BIG)
+    flat = m * torch.arange(n) + torch.where(in_batch, tmach.gather(1, tid),
+                                             0)
+    tasks = _task_cells(n, THREADS, 4 if n % 4 == 0 else 1)
+    bv, bi, _, _ = _scan(tasks, lambda j: value[:, j],
+                         lambda j: in_batch[:, j],
+                         lambda j: torch.zeros_like(flat[:, j]),
+                         _argmin_better, float("inf"),
+                         index=lambda j: flat[:, j])
+    bv, bi, _ = _cta_best(bv, bi, torch.zeros_like(bi), largest=False)
+    found = in_batch.any(1) & room.any(1)
+    return (torch.where(found, bi, -1).to(torch.int32),
+            torch.where(found, bv, BIG))
+
+
+NO_TASK = 2**63 - 1    # the kernel's empty key (all ones), as signed int64
+
+
+def fused_start_pick_model(status, machine, seq, n_machines, *, in_mq=2):
+    """``fused_start_pick`` in the kernel's order -> (pick i32, has bool).
+    The 64-bit key ((seq ^ 0x80000000) << 32 | id) is ordered as the
+    signed seq * 2**32 + id, which fits an int64."""
+    r, n = status.shape
+    m = n_machines
+    layout = TK.pick_layout(n, m, status.data_ptr())
+    if layout == 0:
+        cells = _task_cells(n, THREADS, 1)
+    else:
+        cells = _task_cells(n, WARP, 4 if layout == 2 else 1)
+    # every task once, by one thread
+    seen = cells[cells >= 0]
+    assert torch.equal(seen.sort().values, torch.arange(n))
+    best = torch.full((r, m + 1), NO_TASK, dtype=torch.int64)
+    for k in range(cells.shape[1]):
+        j = cells[:, k]
+        jj = j.clamp(min=0)
+        queued = (j >= 0)[None, :] & (status[:, jj] == in_mq)
+        # machine and seq of a queued task only: the rest read as 0
+        mc = torch.where(queued, machine[:, jj], 0).long()
+        sq = torch.where(queued, seq[:, jj], 0).long()
+        # a machine outside [0, M) goes to the spare entry M
+        slot = torch.where(queued & (mc >= 0) & (mc < m), mc, m)
+        key = torch.where(queued, sq * 2**32 + jj[None, :], NO_TASK)
+        best.scatter_reduce_(1, slot, key, "amin")
+    best = best[:, :m]
+    pick = torch.where(best >> 32 == INT_MAX, 0, best & 0xFFFFFFFF)
+    return pick.to(torch.int32), best != NO_TASK
+
+
 def _np(out):
     return [o.numpy() for o in out]
+
+
+def _minmin_cases():
+    """The FUSED cases, and the shapes and values only the per-type
+    Min-Min order reaches."""
+    cases = dict(FUSED)
+    rng = np.random.default_rng(5)
+
+    def inst(r, n, m, t):
+        return (rng.integers(0, 20, (r, m)).astype(np.float32),
+                rng.random((r, n)) < 0.5, rng.random((r, m)) < 0.7,
+                rng.integers(0, t, (r, n)).astype(np.int32),
+                (rng.integers(1, 9, (r, t, m)) * 0.5).astype(np.float32))
+    # completions +0.0, -0.0, ... along every type row: the first, +0.0
+    # on machine 0, wins (Max-Min's row minimum would be -0.0)
+    avail, inb, room, tid, eet = FUSED["random 3x24x4"]
+    pm = np.zeros_like(eet)
+    pm[..., 1::2] = -0.0
+    cases["type row [+0.0, -0.0]"] = (np.full_like(avail, -0.0), inb,
+                                      np.ones_like(room), tid, pm)
+    cases["T > N"] = inst(3, 5, 6, 9)
+    cases["M > 32"] = inst(3, 24, 70, 3)
+    cases["N % 4 != 0"] = inst(3, 1001, 5, 4)
+    return cases
+
+
+def _pick_cases():
+    """The PICK cases, and the ones the warp layout's gate reaches."""
+    cases = dict(PICK)
+    rng = np.random.default_rng(6)
+    r, n, m = 3, 40, 5
+    st = rng.integers(0, 4, (r, n)).astype(np.int32)
+    cases["every task queued on one machine"] = (
+        np.full((r, n), 2, np.int32), np.full((r, n), 3, np.int32),
+        rng.integers(-50, 50, (r, n)).astype(np.int32), m)
+    seq = rng.integers(-5, 5, (r, n)).astype(np.int32)
+    seq[:, ::3] = INT_MAX
+    seq[0] = INT_MAX                     # replica 0: every queued seq
+    cases["INT_MAX and negative seqs"] = (
+        st, rng.integers(0, m, (r, n)).astype(np.int32), seq, m)
+    cases["machines -1 and M"] = (
+        np.full((r, n), 2, np.int32),
+        rng.choice(np.array([-1, m, 1], np.int32), (r, n)),
+        rng.integers(0, 9, (r, n)).astype(np.int32), m)
+    cases["M > 32"] = (st, rng.integers(-1, 71, (r, n)).astype(np.int32),
+                       rng.integers(0, 9, (r, n)).astype(np.int32), 70)
+    cases["N % 4 != 0"] = (rng.integers(0, 4, (r, 301)).astype(np.int32),
+                           rng.integers(-1, m + 1, (r, 301)).astype(np.int32),
+                           rng.integers(0, 9, (r, 301)).astype(np.int32), m)
+    return cases
+
+
+MINMIN = _minmin_cases()
+PICKS = _pick_cases()
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +379,46 @@ def test_fused_maxmin_model_matches_reference(case):
         *a, block_n=BN, interpret=True))(*args), f"pallas {case}")
 
 
+@pytest.mark.parametrize("case", list(MINMIN))
+def test_fused_minmin_model_matches_reference(case):
+    args = MINMIN[case]
+    got = _np(fused_minmin_model(*map(_t, args)))
+    _same(got, _np(TREF.fused_minmin_ref(*map(_t, args))), f"plain {case}")
+    _same(got, jax.vmap(JREF.fused_minmin_ref)(*args), f"oracle {case}")
+    _same(got, jax.vmap(lambda *a: JK.fused_minmin(
+        *a, block_n=BN, interpret=True))(*args), f"pallas {case}")
+
+
+@pytest.mark.parametrize("case", list(PICKS))
+def test_fused_start_pick_model_matches_reference(case):
+    status, machine, seq, m = PICKS[case]
+    got = _np(fused_start_pick_model(_t(status), _t(machine), _t(seq), m))
+    _same(got, _np(TREF.fused_start_pick_ref(_t(status), _t(machine),
+                                             _t(seq), m)), f"plain {case}")
+    _same(got, jax.vmap(lambda s, mc, q: JREF.fused_start_pick_ref(
+        s, mc, q, m, in_mq=2))(status, machine, seq), f"oracle {case}")
+    _same(got, jax.vmap(lambda s, mc, q: JK.fused_start_pick(
+        s, mc, q, m, in_mq=2, block_n=BN, interpret=True))(
+        status, machine, seq), f"pallas {case}")
+
+
+def test_start_pick_needs_machine_and_seq_of_queued_tasks_only():
+    """The warp layout loads machine and seq for queued tasks only: the
+    plain version's answer does not change when every other task's
+    machine and seq are overwritten."""
+    status, machine, seq, m = PICK["random 2x301x5"]
+    queued = status == 2
+    rng = np.random.default_rng(8)
+    machine2 = np.where(queued, machine, rng.integers(-1, m + 1,
+                                                      machine.shape))
+    seq2 = np.where(queued, seq, rng.integers(-9, 9, seq.shape))
+    want = _np(TREF.fused_start_pick_ref(_t(status), _t(machine), _t(seq), m))
+    _same(_np(TREF.fused_start_pick_ref(_t(status), _t(machine2.astype(
+        np.int32)), _t(seq2.astype(np.int32)), m)), want, "plain")
+    _same(_np(fused_start_pick_model(_t(status), _t(machine), _t(seq), m)),
+          want, "model")
+
+
 # ---------------------------------------------------------------------------
 # the layouts each side of the wrappers' choices
 # ---------------------------------------------------------------------------
@@ -269,21 +442,32 @@ def test_masked_argmin_model_each_layout(shape):
 
 def test_layout_choices():
     """The engine's shapes take the new layouts: the drain's (R, 1, 32)
-    rows a warp per replica with 16-byte loads, Max-Min's 1024 tasks of 4
-    types the per-type layout; T > N the per-task one."""
+    rows a warp per replica with 16-byte loads, Min-Min's and Max-Min's
+    1024 tasks of 4 types the per-type layout (T > N the per-task one),
+    the start pick's 1024 tasks on 32 machines a warp per replica with
+    16-byte loads (more machines than 767 a CTA per replica)."""
     assert TK.argmin_layout(32, 0, 0) == 2
     assert TK.argmin_layout(33, 0, 0) == 1
     assert TK.argmin_layout(32, 4, 0) == 1           # unaligned rows
     assert TK.argmin_layout(TK.ARGMIN_WARP_MAX, 0, 0) == 2
     assert TK.argmin_layout(TK.ARGMIN_WARP_MAX + 1, 0, 0) == 0
-    assert TK.maxmin_layout(1024, 4, 0, 0) == 2
-    assert TK.maxmin_layout(1022, 4, 0, 0) == 1
-    assert TK.maxmin_layout(7, 9, 0, 0) == 0         # T > N
-    assert TK.maxmin_layout(10**5, TK.TYPE_TABLE_MAX, 0, 0) == 2
-    assert TK.maxmin_layout(10**5, TK.TYPE_TABLE_MAX + 1, 0, 0) == 0
-    # the table and block_argmax3's 3 x 32 x 4 static bytes fit in the
-    # 48 KB a launch gets without opting in to more
+    assert TK.type_layout(1024, 4, 0, 0) == 2
+    assert TK.type_layout(1022, 4, 0, 0) == 1
+    assert TK.type_layout(1024, 4, 4, 0) == 1        # unaligned type_id
+    assert TK.type_layout(1024, 4, 0, 1) == 1        # unaligned in_batch
+    assert TK.type_layout(7, 9, 0, 0) == 0           # T > N
+    assert TK.type_layout(10**5, TK.TYPE_TABLE_MAX, 0, 0) == 2
+    assert TK.type_layout(10**5, TK.TYPE_TABLE_MAX + 1, 0, 0) == 0
+    # the table and block_best's 3 x 32 x 4 static bytes fit in the 48 KB
+    # a launch gets without opting in to more
     assert TK.TYPE_TABLE_MAX * 8 + 3 * 32 * 4 <= 48 * 1024
+    assert TK.pick_layout(1024, 32, 0) == 2
+    assert TK.pick_layout(1001, 32, 0) == 1
+    assert TK.pick_layout(1024, 32, 4) == 1          # unaligned status
+    assert TK.pick_layout(1024, TK.PICK_WARP_MAX, 0) == 2
+    assert TK.pick_layout(1024, TK.PICK_WARP_MAX + 1, 0) == 0
+    # 8 warps' tables of M + 1 64-bit keys in 48 KB
+    assert 8 * (TK.PICK_WARP_MAX + 1) * 8 == 48 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -315,3 +499,12 @@ def test_models_property(r, n, m, t, seed, empty):
     got = fused_maxmin_model(*map(_t, args))
     _same(_np(got), _np(TREF.fused_maxmin_ref(*map(_t, args))),
           "fused_maxmin")
+    got = fused_minmin_model(*map(_t, args))
+    _same(_np(got), _np(TREF.fused_minmin_ref(*map(_t, args))),
+          "fused_minmin")
+    seq = rng.choice(np.array([INT_MAX, -3, 0, 1, 2], np.int32), (r, n))
+    pick = (rng.integers(0, 4, (r, n)).astype(np.int32),
+            rng.integers(-1, m + 1, (r, n)).astype(np.int32), seq)
+    got = fused_start_pick_model(*map(_t, pick), m)
+    _same(_np(got), _np(TREF.fused_start_pick_ref(*map(_t, pick), m)),
+          "fused_start_pick")
