@@ -4,6 +4,7 @@
 
     python3 chip_smoke.py --paths serve --serve-tiny   # short first call
     python3 chip_smoke.py --replicas 512 --flat-replicas 512   # short
+    python3 chip_smoke.py --paths workflow,flat_k8     # the new paths
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
@@ -28,6 +29,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
        scenario  the same width with a ``ScenarioAxis`` (fail rates 0,
                  0.05, 0.1 x DVFS nominal, powersave, turbo, half the
                  replicas on spot machines), ten policies;
+       workflow  the same width in workflow mode: chain and layered DAGs
+                 (``WorkloadAxis(shapes=...)``), fail rates 0 and 0.05,
+                 ten paired policies (410 cells); every task terminal,
+                 precedence held (no task starts before its parents'
+                 last end), cascade cancels present;
+       flat_k8   the flat spec with ``SimParams(drain_k=8)``: its final
+                 state bitwise the K = 1 flat run's on the card;
        serve     ``ServingEngine(run_mode="real")``, ee_mct over 4
                  machines of 2 types, 8 Poisson requests of two apps:
                  qwen2-1.5b as published (28 layers) and deepseek-moe-16b
@@ -36,9 +44,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  prompt 1024 and 32 generated tokens; every request
                  completes and each model kernel launches exactly as
                  often as the shapes imply;
-  5. card vs CPU: a 64 x 128 x 8 flat sweep and scenario sweep on the
-     card and on the CPU must give bitwise-equal final states and
-     summaries; the tiny configurations of both apps through the same
+  5. card vs CPU: a 64 x 128 x 8 flat sweep, scenario sweep, workflow
+     sweep (all four DAG shapes) and flat sweep at K = 8 on the card and
+     on the CPU must give bitwise-equal final states and summaries; the
+     tiny configurations of both apps through the same
      ``ServingEngine`` on both, the card teacher-forced with the CPU's
      tokens, must agree on every logit to atol = rtol = 1e-4 and on the
      greedy token wherever the CPU's top-2 margin exceeds 1e-3;
@@ -53,6 +62,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the kernel's grid, timed the same ways.
 After 4 a profiled window of each path (the sweeps' first 32 event
 steps; one request of each app) gives the device's busy and idle share.
+The workflow path's fork-join and map-reduce shapes run only in phase 5:
+at 1024 tasks they pad every parent table to K = 1022 (17 GB at 4096
+replicas) and their ranks take an N x K host loop a cell.
 The last two lines are the kernels JSON line and the result line.
 """
 from __future__ import annotations
@@ -77,7 +89,10 @@ POLICIES = ("fcfs", "rr", "met", "mct", "ee_met", "ee_mct", "minmin",
 SCENARIO = dict(fail_rates=(0.0, 0.05, 0.1),
                 dvfs_states=("nominal", "powersave", "turbo"),
                 spot_frac=0.5)
-PATHS = ("flat", "scenario")          # the sweep paths
+WORKFLOW_SCENARIO = dict(fail_rates=(0.0, 0.05))
+SHAPES = ("chain", "layered")         # the workflow path at full width
+ALL_SHAPES = ("chain", "fork_join", "map_reduce", "layered")   # phase 5
+PATHS = ("flat", "scenario", "workflow", "flat_k8")   # the sweep paths
 ALL_PATHS = PATHS + ("serve",)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -324,12 +339,30 @@ def check_kernels(K, KREF, dev) -> dict:
 # ---------------------------------------------------------------------------
 def fields(st):
     t, m = st.tasks, st.machines
-    return {"time": st.time, "n_events": st.n_events, "status": t.status,
-            "machine": t.machine, "seq": t.seq, "t_start": t.t_start,
-            "t_end": t.t_end, "busy_until": m.busy_until,
-            "active_time": m.active_time, "energy": m.energy,
-            "mq_count": st.mq_count, "n_live": st.n_live,
-            "n_preempts": st.n_preempts, "n_batch": st.n_batch}
+    out = {"time": st.time, "n_events": st.n_events, "status": t.status,
+           "machine": t.machine, "seq": t.seq, "t_start": t.t_start,
+           "t_end": t.t_end, "running": m.running,
+           "busy_until": m.busy_until, "active_time": m.active_time,
+           "energy": m.energy, "mq_count": st.mq_count,
+           "n_live": st.n_live, "n_preempts": st.n_preempts,
+           "n_batch": st.n_batch, "seq_counter": st.seq_counter,
+           "rr_ptr": st.rr_ptr}
+    if st.deps_left is not None:
+        out["deps_left"] = st.deps_left
+    return out
+
+
+def bitwise_equal(got: dict, want: dict, what: str) -> None:
+    """Raise unless every field of ``got`` equals ``want`` bit for bit
+    (compared on ``want``'s device)."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: fields {sorted(got)} != "
+                             f"{sorted(want)}")
+    for key in want:
+        a = got[key].to(want[key].device)
+        if a.shape != want[key].shape or not torch.equal(bits(a),
+                                                         bits(want[key])):
+            raise AssertionError(f"{what}: {key} differs")
 
 
 @contextlib.contextmanager
@@ -361,20 +394,51 @@ def capturing(K, at):
             setattr(K, name, fn)
 
 
-def make_spec(X, E, path, n_rep, n_tasks, n_mach, seed=0, max_events=None):
-    """The spec of a main path: ``flat`` or ``scenario``."""
-    scenario = X.ScenarioAxis(**SCENARIO) if path == "scenario" else None
-    return X.ExperimentSpec(n_rep, X.FleetAxis(n_mach),
-                            X.WorkloadAxis(n_tasks), scenario=scenario,
+def make_spec(X, E, path, n_rep, n_tasks, n_mach, seed=0, max_events=None,
+              shapes=SHAPES):
+    """The spec of a sweep path (``PATHS``); ``shapes`` are the workflow
+    path's DAG shapes."""
+    scenario = {"scenario": X.ScenarioAxis(**SCENARIO),
+                "workflow": X.ScenarioAxis(**WORKFLOW_SCENARIO)}.get(path)
+    workload = X.WorkloadAxis(n_tasks, shapes=shapes
+                              if path == "workflow" else None)
+    drain_k = 8 if path == "flat_k8" else 1
+    return X.ExperimentSpec(n_rep, X.FleetAxis(n_mach), workload,
+                            scenario=scenario,
                             policy=X.PolicyAxis(POLICIES),
-                            sim=E.SimParams(max_events=max_events),
+                            sim=E.SimParams(max_events=max_events,
+                                            drain_k=drain_k),
                             seed=seed)
+
+
+def check_workflow(S, reps, st) -> tuple[int, int]:
+    """On the card: no task started before the last end of its parents,
+    and every task that ran had only completed parents.  Returns the
+    number of cascade cancels (tasks cancelled with a failed parent) and
+    of tasks that waited on a parent."""
+    parents = reps.parents
+    idx, valid = S.dep_index(parents)
+    t_end_p = st.tasks.t_end.gather(1, idx).view(parents.shape)
+    done_p = st.tasks.status.gather(1, idx).view(parents.shape) \
+        == S.COMPLETED
+    last = torch.where(valid, t_end_p, -float("inf")).amax(2)
+    ran = st.tasks.t_start >= 0
+    early = ran & ((st.tasks.t_start < last) | (valid & ~done_p).any(2))
+    if bool(early.any()):
+        bad = early.nonzero()[:5].tolist()
+        raise AssertionError(f"workflow: tasks started before a parent "
+                             f"completed at (replica, task) {bad}")
+    _, failed = S.dep_state(st.tasks.status, parents, (idx, valid))
+    cascade = int(((st.tasks.status == S.CANCELLED) & failed).sum())
+    waited = int((ran & valid.any(2)).sum())
+    return cascade, waited
 
 
 def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
     """Drive one main path through ``run_experiment``, the launch counts
     set to 0 just before and read just after; returns the result, the
-    launches and the inputs captured from the run."""
+    launches, the inputs captured from the run, the loop counters and
+    the execute seconds."""
     phase = f"4 {path}"
     spec = make_spec(X, E, path, n_rep, n_tasks, n_mach)
     t0 = time.perf_counter()
@@ -397,9 +461,9 @@ def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
         log(phase, json.dumps(row))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(phase, f"execute {wall:.3f} s (synchronised); event steps "
-        f"{stats.events}, drain trips {stats.drain_trips}, host reads "
-        f"{stats.host_reads}; peak device memory {peak:.2f} GiB; "
-        f"{gpu_line()}")
+        f"{stats.events}, drain trips {stats.drain_trips}, release trips "
+        f"{stats.release_trips}, host reads {stats.host_reads}; peak "
+        f"device memory {peak:.2f} GiB; {gpu_line()}")
     if path == "scenario":
         log(phase, f"preempted {int(res.metrics['preempted'].sum())} tasks,"
             f" requeued {int(res.metrics['requeues'].sum())} evictions; "
@@ -425,8 +489,18 @@ def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
             raise AssertionError(f"{key} outside [0, 1]")
     if path == "scenario" and not int(st.n_preempts.sum()):
         raise AssertionError("the scenario path evicted no task")
+    if path == "workflow":
+        cascade, waited = check_workflow(S, reps, st)
+        log(phase, f"precedence held for {waited} tasks that waited on a "
+            f"parent; {cascade} cascade cancels; parent tables "
+            f"{tuple(reps.parents.shape)}; preempted "
+            f"{int(res.metrics['preempted'].sum())}, requeued "
+            f"{int(res.metrics['requeues'].sum())}")
+        if not cascade:
+            raise AssertionError("the workflow path cancelled no task "
+                                 "for a failed parent")
     log(phase, f"all {n_rep * n_tasks} tasks terminal; summaries finite")
-    return res, launches, captured
+    return res, launches, captured, stats, wall
 
 
 def recheck_captured(K, KREF, captured, path) -> None:
@@ -440,19 +514,42 @@ def recheck_captured(K, KREF, captured, path) -> None:
 
 
 def card_vs_cpu(X, E, dev, path) -> None:
-    spec = make_spec(X, E, path, 64, 128, 8, seed=1)
+    spec = make_spec(X, E, path, 64, 128, 8, seed=1, shapes=ALL_SHAPES)
     on_card = X.run_experiment(spec, device=dev)
     on_cpu = X.run_experiment(spec, device="cpu")
-    got, want = fields(on_card.state), fields(on_cpu.state)
-    for key in want:
-        if not torch.equal(bits(got[key].cpu()), bits(want[key])):
-            raise AssertionError(f"{path}: card != CPU in {key}")
-    for key in on_cpu.metrics:
-        if not torch.equal(bits(on_card.metrics[key].cpu()),
-                           bits(on_cpu.metrics[key])):
-            raise AssertionError(f"{path}: card != CPU in summary {key}")
-    log("5 card=cpu", f"64x128x8 {path} sweep: every state field and "
-        "summary column bitwise equal to the CPU run")
+    bitwise_equal(fields(on_card.state), fields(on_cpu.state),
+                  f"{path}: card != CPU")
+    bitwise_equal(on_card.metrics, on_cpu.metrics,
+                  f"{path}: card != CPU in the summary")
+    what = f"{path} sweep" + (f" ({', '.join(ALL_SHAPES)})"
+                              if path == "workflow" else "")
+    log("5 card=cpu", f"64x128x8 {what}: every state field and summary "
+        "column bitwise equal to the CPU run")
+
+
+def check_k8(X, E, dev, res, stats, wall, flat_run, n_tasks, n_mach
+             ) -> None:
+    """The flat path at K = 8 against the flat path at K = 1 on the card:
+    the final states bitwise equal.  ``flat_run`` is the K = 1 run's
+    (fields, stats, execute seconds) at the same width, or None to run
+    it here."""
+    n_rep = res.replicas.n_replicas
+    if flat_run is None:
+        stats1 = E.RunStats()
+        spec = make_spec(X, E, "flat", n_rep, n_tasks, n_mach)
+        t0 = time.perf_counter()
+        ref = X.run_experiment(spec, device=dev, replicas=res.replicas,
+                               stats=stats1)
+        torch.cuda.synchronize()
+        flat_run = (fields(ref.state), stats1, time.perf_counter() - t0)
+        del ref
+    want, stats1, wall1 = flat_run
+    bitwise_equal(fields(res.state), want, "flat_k8 != flat")
+    log("4 flat_k8", f"final state bitwise equal to the K = 1 flat run's "
+        f"at {n_rep} replicas; drain trips {stats.drain_trips} (K = 1: "
+        f"{stats1.drain_trips}), host reads {stats.host_reads} "
+        f"({stats1.host_reads}), execute {wall:.3f} s "
+        f"({wall1:.3f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -1321,6 +1418,10 @@ def main() -> int:
                     help="replicas of the scenario path")
     ap.add_argument("--flat-replicas", type=int, default=4096,
                     help="replicas of the flat path")
+    ap.add_argument("--workflow-replicas", type=int, default=4096,
+                    help="replicas of the workflow path")
+    ap.add_argument("--k8-replicas", type=int, default=4096,
+                    help="replicas of the flat path at K = 8")
     ap.add_argument("--tasks", type=int, default=1024)
     ap.add_argument("--machines", type=int, default=32)
     ap.add_argument("--paths", default=",".join(ALL_PATHS),
@@ -1334,7 +1435,8 @@ def main() -> int:
     if not set(paths) <= set(ALL_PATHS):
         ap.error(f"--paths takes {ALL_PATHS}")
     sweeps = [p for p in PATHS if p in paths]
-    width = {"flat": a.flat_replicas, "scenario": a.replicas}
+    width = {"flat": a.flat_replicas, "scenario": a.replicas,
+             "workflow": a.workflow_replicas, "flat_k8": a.k8_replicas}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
@@ -1377,9 +1479,17 @@ def main() -> int:
     errs = check_kernels(K, KREF, dev)
     errs.update(check_model_kernels(mods, dev))
     launches, captured = {}, {}
+    flat_run = None
     for path in sweeps:
-        res, launches[path], captured[path] = run_main(
+        res, launches[path], captured[path], stats, wall = run_main(
             X, E, K, S, dev, path, width[path], a.tasks, a.machines)
+        if path == "flat" and "flat_k8" in sweeps \
+                and width["flat"] == width["flat_k8"]:
+            flat_run = (fields(res.state), stats, wall)
+        if path == "flat_k8":
+            check_k8(X, E, dev, res, stats, wall, flat_run, a.tasks,
+                     a.machines)
+            flat_run = None
         del res
         recheck_captured(K, KREF, captured[path], path)
     rows = []

@@ -1,19 +1,24 @@
 """The E2C discrete-event engine in PyTorch, batched over replicas.
 
-The counterpart of ``repro.core.engine`` for independent tasks on a
-static or dynamic fleet.  The reference runs one ``lax.while_loop`` per
-replica under ``vmap``; here one Python loop advances all R replicas
-together.  Each trip of the loop processes one event timestamp of every
-replica that is still running (its own timestamp), and every phase masks
-its updates with that replica's ``active`` flag, which is what ``vmap``
-does to a batched ``while_loop``.  Event order within a timestamp
+The counterpart of ``repro.core.engine`` for independent tasks and
+workflows (DAGs) on a static or dynamic fleet.  The reference runs one
+``lax.while_loop`` per replica under ``vmap``; here one Python loop
+advances all R replicas together.  Each trip of the loop processes one
+event timestamp of every replica that is still running (its own
+timestamp), and every phase masks its updates with that replica's
+``active`` flag, which is what ``vmap`` does to a batched
+``while_loop``.  Event order within a timestamp
 matches the reference:
 
   1. completions  (``busy_until <= t``),
   2. availability (dynamic fleets only: a machine inside a down interval
      preempts its running task and flushes its queue, killing or
      requeueing the evicted tasks; partial energy is charged),
-  3. arrivals     (``arrival <= t`` -> batch queue, overflow -> cancelled),
+  2b. release     (workflows only: recount each task's parents that are
+     not terminal; a task whose parents all ended, some without
+     completing, is cancelled, and the cancels cascade to a fixpoint),
+  3. arrivals     (``arrival <= t``, and for a workflow every parent
+     completed -> batch queue, overflow -> cancelled),
   4. deadline drops (queued -> MISSED_QUEUE, running -> MISSED_RUNNING),
   5. scheduler drain (policy decisions until a no-op or the batch queue
      is exhausted; down machines have no room; the cancellation wrapper
@@ -21,10 +26,13 @@ matches the reference:
   6. start tasks on idle machines that are up (lowest mapping sequence
      first).
 
-A ``MachineDynamics`` adds the availability phase, the machines' DVFS
-multipliers (``speed`` divides the expected and actual execution times,
-``power_scale`` multiplies power) and the down-interval transitions as
-event candidates; without one the static-fleet path runs unchanged.
+An (R, N, K) parent table adds the release phase, gates arrivals on
+``deps_left == 0`` and makes a pending cascade an event at the current
+time.  A ``MachineDynamics`` adds the availability phase, the
+machines' DVFS multipliers (``speed`` divides the expected and actual
+execution times, ``power_scale`` multiplies power) and the
+down-interval transitions as event candidates; without one the
+static-fleet path runs unchanged.
 
 Floats are computed with the reference's expressions in the reference's
 order (``time + dur``, ``avail + eet``); the energy charges ``energy +
@@ -38,12 +46,20 @@ next-event minima always go through the wrappers of
 ``kernels/sched_argmin.py``: the CUDA kernels on the card, their plain
 versions on the CPU (the reference with ``pallas=True``).
 
+``SimParams(drain_k=K)`` makes each drain trip decide up to K sequential
+decisions at once (``schedulers.dispatch_k``) and apply the valid prefix
+in one masked scatter, bitwise the one-at-a-time drain;
+``legacy_drain`` recomputes the machine-available vector every trip, as
+the reference's baseline loop does.
+
 Host reads: the drain runs in chunks of ``DRAIN_CHUNK`` trips and reads
 one pair of flags after each chunk (is any replica still draining, is
 any replica still live); the last read of an event also decides whether
 another event follows, so the event loop adds no read of its own and a
-run costs one read per event step plus one per extra chunk.  State
-tensors that the run creates are updated in place.
+run costs one read per event step plus one per extra chunk.  A
+workflow's release phase reads one flag after each chunk of cascade
+passes, the chunks doubling from one pass (most events cascade nothing).
+State tensors that the run creates are updated in place.
 """
 from __future__ import annotations
 
@@ -56,6 +72,7 @@ from repro_torch import resolve_device
 from repro_torch.core import schedulers as P
 from repro_torch.core import state as S
 from repro_torch.core.eet import EETTable
+from repro_torch.core.workload import Workflow
 from repro_torch.core.reduce import fma, ordered_sum, signed_min
 from repro_torch.kernels import sched_argmin as K
 
@@ -70,6 +87,8 @@ class SimParams:
     qcap: int = 1 << 30            # batch-queue capacity
     cancel_infeasible: bool = True
     max_events: int | None = None
+    drain_k: int = 1               # decisions a drain trip makes at once
+    legacy_drain: bool = False     # recompute avail every drain trip
 
 
 @dataclass
@@ -77,6 +96,7 @@ class RunStats:
     """Loop counters of one ``run_sweep`` call, filled in by the run."""
     events: int = 0         # event steps (loop trips over all replicas)
     drain_trips: int = 0    # drain trips, including masked no-op trips
+    release_trips: int = 0  # cascade passes, including masked no-op ones
     host_reads: int = 0     # device-to-host flag reads
 
 
@@ -182,10 +202,40 @@ def _availability(st: S.SimState, dyn: S.MachineDynamics,
     st.n_batch = st.n_batch + _count(req_hit) + _count(rq)
 
 
+def _release(st: S.SimState, deps: tuple, act: torch.Tensor,
+             stats: RunStats) -> None:
+    """Recount ``deps_left`` from the status column and cancel the tasks
+    whose parents all terminated, some without completing, until a pass
+    cancels nothing.  A pass that cancels nothing recomputes the same
+    counts, so the passes run in masked chunks, one host read a chunk;
+    a chunk is twice the last, from one pass."""
+    parents, index = deps
+    tasks = st.tasks
+    on = act.clone()
+    chunk = 1
+    while True:
+        for _ in range(chunk):
+            left, failed = S.dep_state(tasks.status, parents, index)
+            kill = on[:, None] & (tasks.status == S.NOT_ARRIVED) & (
+                left == 0) & failed
+            tasks.status = torch.where(kill, S.CANCELLED, tasks.status)
+            tasks.t_end = torch.where(kill, st.time[:, None], tasks.t_end)
+            st.deps_left = torch.where(on[:, None], left, st.deps_left)
+            st.n_live = st.n_live - _count(kill)
+            on = on & kill.any(1)
+            stats.release_trips += 1
+        stats.host_reads += 1
+        if not bool(on.any()):
+            return
+        chunk *= 2
+
+
 def _arrivals(st: S.SimState, qcap: int, act: torch.Tensor) -> None:
     tasks = st.tasks
     new = act[:, None] & (tasks.status == S.NOT_ARRIVED) & (
         tasks.arrival <= st.time[:, None])
+    if st.deps_left is not None:
+        new = new & (st.deps_left == 0)
     pos = torch.cumsum(new.to(torch.int32), 1, dtype=torch.int32)
     admitted = new & (st.n_batch[:, None] + pos <= qcap)
     overflow = new & ~admitted
@@ -253,6 +303,43 @@ def _apply_decision(st: S.SimState, dec: P.Decision, on: torch.Tensor
     return do_map
 
 
+def _apply_decisions_k(st: S.SimState, dec: P.Decision, use: torch.Tensor
+                       ) -> torch.Tensor:
+    """Apply each replica's (R, k) prefix ``use`` of K-way decisions in
+    one masked scatter: per candidate what ``_apply_decision`` does, the
+    mapping sequence numbers in candidate order and ``rr_ptr`` one past
+    the last mapped machine.  The prefix's tasks are distinct.  Returns
+    the (R,) applied counts."""
+    tasks = st.tasks
+    n_m = st.machines.mtype.shape[1]
+    k = dec.task.shape[1]
+    do_map = use & ~dec.cancel
+    do_cxl = use & dec.cancel
+    maps = do_map.to(torch.int32)
+    seq_rank = torch.cumsum(maps, 1, dtype=torch.int32) - maps
+    tasks.status = _put_many(tasks.status, dec.task, torch.where(
+        dec.cancel, S.CANCELLED, S.IN_MQ), use)
+    tasks.machine = _put_many(tasks.machine, dec.task, dec.machine, do_map)
+    tasks.seq = _put_many(tasks.seq, dec.task,
+                          st.seq_counter[:, None] + seq_rank, do_map)
+    tasks.t_end = _put_many(tasks.t_end, dec.task,
+                            st.time[:, None].expand(-1, k), do_cxl)
+    added = torch.zeros((do_map.shape[0], n_m + 1), dtype=torch.int32,
+                        device=do_map.device)
+    added.scatter_add_(1, torch.where(do_map, dec.machine, n_m).long(),
+                       torch.ones_like(maps))
+    st.mq_count = st.mq_count + added[:, :n_m]
+    steps = torch.arange(k, device=do_map.device)
+    last = torch.where(do_map, steps, -1).amax(1)
+    m_last = dec.machine.gather(1, last.clamp(min=0)[:, None])[:, 0]
+    st.rr_ptr = torch.where(last >= 0, (m_last + 1) % n_m, st.rr_ptr)
+    n_applied = _count(use)
+    st.seq_counter = st.seq_counter + _count(do_map)
+    st.n_batch = st.n_batch - n_applied
+    st.n_live = st.n_live - _count(do_cxl)
+    return n_applied
+
+
 def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
            params: SimParams, const: tuple, act: torch.Tensor,
            max_events: int, stats: RunStats,
@@ -268,6 +355,11 @@ def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
     mach = st.machines
     n_m = mach.mtype.shape[1]
     bound = st.n_batch.clone()
+    k = max(1, int(params.drain_k))
+    if params.legacy_drain:
+        # the reference's baseline loop: avail recomputed every trip
+        # (``avail=None``), the bound counted from the statuses
+        bound = _count(st.tasks.status == S.IN_BATCH)
     draining = act & (bound > 0)
     t = st.time[:, None]
     base = torch.maximum(t, torch.where(mach.running >= 0, mach.busy_until,
@@ -280,16 +372,27 @@ def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
     iters = torch.zeros_like(bound)
     while True:
         for _ in range(DRAIN_CHUNK):
-            dec = P.dispatch(plan, st, tb, params.lcap,
-                             params.cancel_infeasible, const,
-                             avail=avail, up=up)
-            do_map = _apply_decision(st, dec, draining)
-            m_oh = (ids == dec.machine[:, None]) & do_map[:, None]
-            avail = torch.where(
-                m_oh, avail + eet_nm[rows, dec.task.clamp(min=0).long()],
-                avail)
-            iters = iters + draining.to(torch.int32)
-            draining = draining & (dec.task >= 0) & (iters < bound)
+            if k > 1 and not params.legacy_drain:
+                dec, use, av = P.dispatch_k(
+                    plan, st, tb, params.lcap, params.cancel_infeasible, k,
+                    const, avail=avail, up=up)
+                iters = iters + _apply_decisions_k(
+                    st, dec, use & draining[:, None])
+                avail = torch.where(draining[:, None], av, avail)
+                first = dec.task[:, 0]
+            else:
+                dec = P.dispatch(plan, st, tb, params.lcap,
+                                 params.cancel_infeasible, const,
+                                 avail=None if params.legacy_drain
+                                 else avail, up=up)
+                do_map = _apply_decision(st, dec, draining)
+                m_oh = (ids == dec.machine[:, None]) & do_map[:, None]
+                avail = torch.where(
+                    m_oh, avail + eet_nm[rows, dec.task.clamp(min=0).long()],
+                    avail)
+                iters = iters + draining.to(torch.int32)
+                first = dec.task
+            draining = draining & (first >= 0) & (iters < bound)
             stats.drain_trips += 1
         live = (st.n_live > 0) & (st.n_events + 1 < max_events)
         still, more = torch.stack([draining.any(), live.any()]).tolist()
@@ -343,12 +446,26 @@ def _fold_transitions(t: torch.Tensor, st: S.SimState,
 
 
 def _next_event_time(st: S.SimState,
-                     transitions: torch.Tensor | None = None
-                     ) -> torch.Tensor:
+                     transitions: torch.Tensor | None = None,
+                     deps: tuple | None = None) -> torch.Tensor:
     tasks, mach = st.tasks, st.machines
+    status = tasks.status
+    pending = None
+    if deps is not None:
+        # a task that waits on a parent has no arrival event of its own
+        # (the parent's terminal transition is one): the kernel sees it
+        # as not NOT_ARRIVED, which leaves the minimum over the others
+        # bitwise.  A cascade left pending by phases 3-6 fires at the
+        # current time.
+        left, failed = S.dep_state(status, *deps)
+        waiting = status == S.NOT_ARRIVED
+        pending = (waiting & (left == 0) & failed).any(1)
+        status = torch.where(waiting & ((left > 0) | failed), -1, status)
     t_arr, t_dl = K.fused_event_bounds(
-        tasks.status, tasks.arrival, tasks.deadline,
+        status, tasks.arrival, tasks.deadline,
         not_arrived=S.NOT_ARRIVED, live_lo=S.IN_BATCH, live_hi=S.RUNNING)
+    if pending is not None:
+        t_arr = torch.minimum(t_arr, torch.where(pending, st.time, S.INF))
     t_cmp = signed_min(torch.where(mach.running >= 0, mach.busy_until,
                                    S.INF), 1)
     return _fold_transitions(torch.minimum(torch.minimum(t_arr, t_cmp),
@@ -362,24 +479,31 @@ def run_sweep(tasks: S.TaskTable, mtype: torch.Tensor,
               tables: S.StaticTables, policy_ids: torch.Tensor,
               params: SimParams = SimParams(),
               stats: RunStats | None = None,
-              dynamics: S.MachineDynamics | None = None) -> S.SimState:
+              dynamics: S.MachineDynamics | None = None,
+              parents: torch.Tensor | None = None) -> S.SimState:
     """Run R replicas to completion; returns the final (R, ...) state.
 
     Every argument carries the leading replica axis and lies on the
     device the run uses.  ``policy_ids`` (R,) picks each replica's
     policy by the reference's ids (``schedulers.POLICY_IDS``).  Pass a
     ``RunStats`` to read the loop's event, trip and host-read counts,
-    and a ``MachineDynamics`` to make the fleet dynamic (failures, spot
-    preemption, DVFS)."""
+    a ``MachineDynamics`` to make the fleet dynamic (failures, spot
+    preemption, DVFS), and an (R, N, K) i32 ``parents`` table, padded
+    with -1, to run workflows (a task arrives once every parent
+    completed)."""
     stats = RunStats() if stats is None else stats
-    st = S.init_state(tasks, mtype, dynamics)
+    st = S.init_state(tasks, mtype, dynamics, parents)
     r, n = st.tasks.arrival.shape
     max_events = params.max_events or (4 * n + 16)
     if dynamics is not None and params.max_events is None:
         # every down interval contributes at most 2 extra events
         max_events += 2 * dynamics.down_start.shape[-1] * mtype.shape[-1]
+    if parents is not None and params.max_events is None:
+        # every cascade echoes at most one extra event a cancelled task
+        max_events += n
     if r == 0 or n == 0 or max_events <= 0:
         return st
+    deps = None if parents is None else (parents, S.dep_index(parents))
     plan = P.Plan.make(policy_ids.to(torch.int32), st, tables)
     const = P.expected_tables(st, tables)
     rows = torch.arange(r, device=mtype.device)[:, None]
@@ -391,12 +515,14 @@ def run_sweep(tasks: S.TaskTable, mtype: torch.Tensor,
     up = None
     more = True
     while more:
-        t = _next_event_time(st, transitions)
+        t = _next_event_time(st, transitions, deps)
         st.time = torch.where(act, t, st.time)
         _completions(st, p_active, act)
         if dynamics is not None:
             _availability(st, dynamics, p_active, act)
             up = S.machine_up(dynamics, st.time)
+        if deps is not None:
+            _release(st, deps, act, stats)
         _arrivals(st, params.qcap, act)
         _deadline_drops(st, p_active, act)
         more = _drain(st, tables, plan, params, const, act, max_events,
@@ -435,16 +561,25 @@ def simulate(workload, eet: EETTable, power: np.ndarray,
              dynamics: S.MachineDynamics | None = None,
              device="cuda") -> S.SimState:
     """One replica, named policy; returns a one-replica (leading axis 1)
-    final state.  ``dynamics`` (leading axis 1, on ``device``, e.g. from
+    final state.  ``workload`` is a ``workload.Workload`` or a
+    ``workload.Workflow``, whose parent table goes to the release phase
+    and whose HEFT ranks come from the EET row means.  ``dynamics``
+    (leading axis 1, on ``device``, e.g. from
     ``workload.Scenario.dynamics``) makes the fleet dynamic."""
     dev = resolve_device(device)
+    parents = rank = None
+    if isinstance(workload, Workflow):
+        eet_arr = np.asarray(getattr(eet, "eet", eet))
+        parents = torch.as_tensor(workload.parents[None], device=dev)
+        rank = workload.ranks(eet_arr.mean(axis=1))
+        workload = workload.workload
     params = SimParams(lcap=lcap, qcap=qcap or (1 << 30),
                        cancel_infeasible=cancel_infeasible)
     tables = make_tables(eet, power, workload.n_tasks, noise=noise,
-                         device=dev)
+                         rank=rank, device=dev)
     mtype = torch.as_tensor(np.asarray(machine_types, np.int32)[None],
                             device=dev)
     pid = torch.tensor([P.POLICY_IDS[policy]], dtype=torch.int32,
                        device=dev)
     return run_sweep(workload.to_task_table(dev), mtype, tables, pid, params,
-                     dynamics=dynamics)
+                     dynamics=dynamics, parents=parents)

@@ -1,9 +1,10 @@
 """Plain-Python event loop of the E2C semantics, for the serving engine.
 
 A numpy copy of ``repro/core/ref_engine.py``'s ``_Sim`` and
-``simulate_ref``, limited to what ``serving.ServingEngine`` runs:
-independent tasks, a static fleet and the ten heuristics, with no trace,
-metrics, streaming window or learned policy.  The float64 arithmetic and
+``simulate_ref``, limited to what ``serving.ServingEngine`` and the
+workflow tests run: a static fleet and the ten heuristics, on
+independent tasks or a workflow (``parents`` and HEFT ``rank``), with no
+trace, metrics, streaming window or learned policy.  The float64 arithmetic and
 every tie-break are the reference's, so for the same inputs every result
 is equal to the reference's, not close: a static fleet's speed and power
 multipliers are 1.0, whose division and product the copy leaves out as
@@ -50,6 +51,8 @@ class _Sim:
     lcap: int
     qcap: int
     cancel_infeasible: bool
+    parents: np.ndarray | None = None        # (N, K) i32, -1 padded
+    rank: np.ndarray | None = None           # (N,) HEFT upward ranks
 
     status: np.ndarray = field(init=False)
     machine: np.ndarray = field(init=False)
@@ -69,7 +72,8 @@ class _Sim:
             raise ValueError(f"unknown or unported policy {self.policy!r}; "
                              f"the port's reference loop has {POLICIES}")
         n, m = len(self.arrival), len(self.mtype)
-        self.rank = np.zeros(n, np.float64)
+        if self.rank is None:
+            self.rank = np.zeros(n, np.float64)
         self.status = np.full(n, S.NOT_ARRIVED, np.int32)
         self.machine = np.full(n, -1, np.int32)
         self.seq = np.full(n, np.iinfo(np.int32).max, np.int64)
@@ -107,6 +111,38 @@ class _Sim:
     def batch_queue(self) -> list[int]:
         return list(np.nonzero(self.status == S.IN_BATCH)[0])
 
+    # ---- workflow ----------------------------------------------------------
+    def _parents_of(self, t: int) -> list[int]:
+        if self.parents is None:
+            return []
+        return [int(p) for p in self.parents[t] if p >= 0]
+
+    def released(self, t: int) -> bool:
+        """All parents terminal (trivially true without a workflow)."""
+        return all(self.status[p] >= S.COMPLETED
+                   for p in self._parents_of(t))
+
+    def dep_failed(self, t: int) -> bool:
+        return any(self.status[p] >= S.COMPLETED
+                   and self.status[p] != S.COMPLETED
+                   for p in self._parents_of(t))
+
+    def release(self):
+        """Cancel the tasks whose precedence can never be satisfied,
+        cascading to a fixpoint."""
+        if self.parents is None:
+            return
+        changed = True
+        while changed:
+            changed = False
+            for t in range(len(self.arrival)):
+                if self.status[t] != S.NOT_ARRIVED:
+                    continue
+                if self.released(t) and self.dep_failed(t):
+                    self.status[t] = S.CANCELLED
+                    self.t_end[t] = self.time
+                    changed = True
+
     # ---- event phases ----------------------------------------------------
     def completions(self):
         for m in range(len(self.mtype)):
@@ -122,6 +158,7 @@ class _Sim:
     def arrivals(self):
         new = np.nonzero((self.status == S.NOT_ARRIVED)
                          & (self.arrival <= self.time))[0]
+        new = [t for t in new if self.released(t)]
         n_in_batch = int((self.status == S.IN_BATCH).sum())
         for k, t in enumerate(sorted(new)):
             if n_in_batch + k + 1 <= self.qcap:
@@ -238,7 +275,18 @@ class _Sim:
     # ---- loop ------------------------------------------------------------
     def next_event(self) -> float:
         cands = []
-        na = self.arrival[self.status == S.NOT_ARRIVED]
+        waiting = np.nonzero(self.status == S.NOT_ARRIVED)[0]
+        if self.parents is None:
+            na = self.arrival[waiting]
+        else:
+            # a task waiting on a parent has no arrival event (the
+            # parent's terminal transition is one); a pending cascade
+            # fires at the current time
+            na = np.array([self.arrival[t] for t in waiting
+                           if self.released(t) and not self.dep_failed(t)])
+            if any(self.released(t) and self.dep_failed(t)
+                   for t in waiting):
+                cands.append(self.time)
         if na.size:
             cands.append(na.min())
         bu = self.busy_until[self.running >= 0]
@@ -253,7 +301,8 @@ class _Sim:
     def run(self, max_events: int | None = None) -> RefResult:
         n = len(self.arrival)
         # the reference's budget with a static fleet's one (inf) interval
-        budget = max_events or (4 * n + 16 + 2 * len(self.mtype))
+        budget = max_events or (4 * n + 16 + 2 * len(self.mtype)
+                                + (n if self.parents is not None else 0))
         n_events = 0
         while not np.all(self.status >= S.COMPLETED) and budget > 0:
             t = self.next_event()
@@ -261,6 +310,7 @@ class _Sim:
                 break
             self.time = max(t, self.time)
             self.completions()
+            self.release()
             self.arrivals()
             self.deadline_drops()
             self.drain()
@@ -276,8 +326,10 @@ class _Sim:
 def simulate_ref(arrival, type_id, deadline, eet, power, mtype, *,
                  policy="mct", lcap=4, qcap=1 << 30,
                  cancel_infeasible=True, noise=None,
-                 max_events=None) -> RefResult:
-    """One run of the reference loop on a static fleet."""
+                 max_events=None, parents=None, rank=None) -> RefResult:
+    """One run of the reference loop on a static fleet; ``parents`` (N,
+    K) and ``rank`` (N,) make it a workflow run (pass the float32 ranks
+    the engine gets, so that the ``heft`` orders agree)."""
     arrival = np.asarray(arrival, np.float64)
     if noise is None:
         noise = np.ones(len(arrival))
@@ -285,5 +337,8 @@ def simulate_ref(arrival, type_id, deadline, eet, power, mtype, *,
                np.asarray(deadline, np.float64),
                np.asarray(eet, np.float64), np.asarray(power, np.float64),
                np.asarray(mtype, np.int64), np.asarray(noise, np.float64),
-               policy, lcap, qcap, cancel_infeasible)
+               policy, lcap, qcap, cancel_infeasible,
+               parents=None if parents is None
+               else np.asarray(parents, np.int32),
+               rank=None if rank is None else np.asarray(rank, np.float64))
     return sim.run(max_events)

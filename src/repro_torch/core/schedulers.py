@@ -18,10 +18,18 @@ masked argmin — so each returns its task and (R, M) score and mask rows,
 their fused kernels on the replicas that use them.  Every replica's
 decision is the one its
 ``lax.switch`` branch takes.
+
+``dispatch_k`` makes up to K sequential drain decisions in one call, as
+the reference's K-way drain does: the head, deadline and rank ordered
+policies construct them exactly with a K-step scan over (R, M) rows, and
+``rr``, ``minmin`` and ``maxmin`` speculate K tasks under the frozen view
+and keep the longest prefix that the sequential drain would also take.
+Each policy runs on its own replica rows, as in ``dispatch``: the
+reference's ``lax.switch`` over every branch is not paid.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
@@ -30,6 +38,7 @@ from repro_torch.core import state as S
 from repro_torch.kernels import sched_argmin as K
 
 BIG = 1e30
+INF = float("inf")
 
 POLICY_NAMES = ["fcfs", "rr", "met", "mct", "ee_met", "ee_mct", "minmin",
                 "maxmin", "edf_mct", "heft", "mlp", "linear"]
@@ -265,6 +274,10 @@ class Plan:
     is_policy: dict                     # name -> bool (R,)
     pair_rows: dict                     # name -> (R_p,) rows or None
     eet_m: dict                         # name -> (R_p, T, M) kernel table
+    rows: dict                          # name -> (R_p,) rows or None,
+    #                                     for every policy present
+    eet_mk: dict = field(default_factory=dict)  # (name, k) -> the kernel
+    #                                     table repeated for k views
 
     @classmethod
     def make(cls, policy_ids: torch.Tensor, state: S.SimState,
@@ -280,15 +293,15 @@ class Plan:
                     f"policy {name!r}: {NOT_PORTED[name]}")
             names.append(name)
         is_policy = {n: policy_ids == POLICY_IDS[n] for n in names}
+        rows = {n: None if len(names) == 1 else
+                torch.nonzero(is_policy[n])[:, 0] for n in names}
         pair = [name for name in PAIR_POLICIES if name in names]
         table = scaled_eet_table(state, tables) if pair else None
         pair_rows, eet_m = {}, {}
         for name in pair:
-            rows = None if len(names) == 1 else \
-                torch.nonzero(is_policy[name])[:, 0]
-            pair_rows[name] = rows
-            eet_m[name] = table if rows is None else table[rows]
-        return cls(tuple(names), is_policy, pair_rows, eet_m)
+            pair_rows[name] = rows[name]
+            eet_m[name] = table if rows[name] is None else table[rows[name]]
+        return cls(tuple(names), is_policy, pair_rows, eet_m, rows)
 
 
 def _cancel_wrap(dec: Decision, view: SchedView, state: S.SimState,
@@ -343,3 +356,314 @@ def dispatch(plan: Plan, state: S.SimState, tables: S.StaticTables,
             machine = machine.index_copy(0, rows, dec.machine)
     return _cancel_wrap(Decision(task, machine, torch.zeros_like(
         view.any_room)), view, state, cancel_infeasible)
+
+
+# --------------------------------------------------------------------------
+# K-way dispatch: up to K sequential drain decisions in one call
+# --------------------------------------------------------------------------
+# Policies whose j-th sequential decision is a closed form of (avail,
+# queue counts) after the first j-1: a static task order (FIFO, deadline,
+# upward rank; ties to the lowest id) and the policy's own machine rule.
+# A K-step scan constructs their K decisions exactly.
+_SCAN_RULES: dict[str, tuple[str, str]] = {
+    # policy -> (task-order key, machine scoring rule)
+    "fcfs": ("head", "avail"),
+    "met": ("head", "eet"),
+    "mct": ("head", "mct"),
+    "ee_met": ("head", "energy"),
+    "ee_mct": ("head", "ee_mct"),
+    "edf_mct": ("edf", "mct"),
+    "heft": ("rank", "mct"),
+}
+
+# The other policies speculate their task order under the frozen view
+# (FIFO, or each task's best frozen completion, ascending for Min-Min and
+# descending for Max-Min) and validate a sequentially consistent prefix.
+_SPEC_ORDER: dict[str, str] = {"rr": "head", "minmin": "minmin",
+                               "maxmin": "maxmin"}
+
+# Min-Min's choice provably survives the prefix corrections (all prefix
+# machines distinct: the winner's cell is untouched, every other
+# corrected cell only grows or loses its room).  ``rr`` (its pointer
+# moves with each map) and ``maxmin`` (its argmax over growing row
+# minima can flip) extend their prefix only past cancels.
+_SPECULATIVE_SAFE = {"minmin"}
+
+
+def _order_by_key(keys: torch.Tensor, valid: torch.Tensor, k: int
+                  ) -> torch.Tensor:
+    """(R, k) first k task ids of each row by (key, id), -1 padded: a
+    stable sort, so ties keep the lowest id, as the sequential
+    first-index argmin does.  The reference's sort treats -0.0 and +0.0
+    as equal; so does this one, which turns -0.0 into +0.0 first, so
+    that the CPU's comparison sort and the card's radix sort agree."""
+    masked = torch.where(valid, keys, INF)
+    masked = torch.where(masked == 0, 0.0, masked)
+    order = torch.argsort(masked, dim=1, stable=True)[:, :k]
+    order = torch.where(valid.gather(1, order), order, -1).to(torch.int32)
+    if order.shape[1] < k:                   # fewer tasks than the width
+        order = torch.nn.functional.pad(order, (0, k - order.shape[1]),
+                                        value=-1)
+    return order
+
+
+def _first_k(valid: torch.Tensor, k: int) -> torch.Tensor:
+    """(R, k) the first k valid task ids of each row, -1 padded: the
+    order ``_order_by_key`` gives task ids, without a sort."""
+    r, n = valid.shape
+    pos = torch.cumsum(valid.to(torch.int32), 1, dtype=torch.int32) - 1
+    col = torch.where(valid & (pos < k), pos, k).long()
+    ids = torch.arange(n, dtype=torch.int32, device=valid.device)
+    out = torch.full((r, k + 1), -1, dtype=torch.int32, device=valid.device)
+    out.scatter_(1, col, ids.expand(r, n))
+    return out[:, :k].contiguous()
+
+
+def _gather_rows(table: torch.Tensor, rows: torch.Tensor | None,
+                 t: torch.Tensor) -> torch.Tensor:
+    """``table[rows[i], t[i, j]]`` for an (R, N, ...) table and (R_p, k)
+    task ids (clamped at 0); all rows where ``rows`` is None."""
+    r = torch.arange(t.shape[0], device=t.device) if rows is None else rows
+    return table[r[:, None], t.clamp(min=0).long()]
+
+
+def _scan_k(plan: Plan, state: S.SimState, view: SchedView, lcap: int,
+            cancel_infeasible: bool, k: int, up: torch.Tensor | None):
+    """The K sequential decisions of every replica whose policy is in
+    ``_SCAN_RULES``, constructed by a K-step scan that carries (avail,
+    per-machine map counts): the same float adds in the same order as
+    the sequential drain and one ``masked_argmin`` over (R, 1, M) rows a
+    step.  Returns (task, machine, cancel) (R, k), the prefix mask and the
+    carried avail; rows of other policies are overwritten by the
+    caller."""
+    names = [n for n in plan.names if n in _SCAN_RULES]
+    tasks = state.tasks
+    # task order: FIFO for every row, then the deadline and rank orders
+    # on the rows of the policies that use them
+    order = _first_k(view.in_batch, k)
+    for kind in ("edf", "rank"):
+        kind_names = [n for n in names if _SCAN_RULES[n][0] == kind]
+        if not kind_names:
+            continue
+        rows = None if plan.rows[kind_names[0]] is None else torch.cat(
+            [plan.rows[n] for n in kind_names])
+        sel = (lambda x: x) if rows is None else (lambda x: x[rows])
+        key = tasks.deadline if kind == "edf" else -view.rank
+        o = _order_by_key(sel(key), sel(view.in_batch), k)
+        order = o if rows is None else order.index_copy(0, rows, o)
+    eet_k = _gather_rows(view.eet_nm, None, order)              # (R, k, M)
+    energy_k = _gather_rows(view.energy_nm, None, order)
+    dl_k = tasks.deadline.gather(1, order.clamp(min=0).long())  # (R, k)
+    rules = {}
+    for n in names:
+        rule = _SCAN_RULES[n][1]
+        rules[rule] = plan.is_policy[n] if rule not in rules \
+            else rules[rule] | plan.is_policy[n]
+    n_m = view.room.shape[1]
+    ids = torch.arange(n_m, device=order.device)
+    avail = view.avail
+    cnt = torch.zeros_like(state.mq_count)
+    out_t, out_m, out_c = [], [], []
+    for j in range(k):
+        t, eet_row, energy_row, dl = order[:, j], eet_k[:, j], \
+            energy_k[:, j], dl_k[:, j]
+        room = (state.mq_count + cnt) < lcap
+        if up is not None:
+            room = room & up
+        any_room = room.any(1)
+        crow = avail + eet_row                      # completion_row(t)
+        s_sel = m_sel = None
+        for rule, on in rules.items():
+            if rule == "ee_mct":
+                feasible = (crow <= dl[:, None]) & room
+                energy = torch.where(feasible, energy_row, BIG)
+                fallback = torch.where(room, crow, BIG)
+                scores = torch.where(feasible.any(1, keepdim=True), energy,
+                                     fallback)
+                mask = torch.ones_like(room)
+            else:
+                scores = {"avail": avail, "eet": eet_row,
+                          "energy": energy_row, "mct": crow}[rule]
+                mask = room
+            if s_sel is None:
+                s_sel, m_sel = scores, mask
+            else:
+                s_sel = torch.where(on[:, None], scores, s_sel)
+                m_sel = torch.where(on[:, None], mask, m_sel)
+        m, _ = K.masked_argmin(s_sel[:, None, :], m_sel[:, None, :])
+        m = torch.where(any_room, m, -1)
+        ok = (t >= 0) & any_room
+        task = torch.where(ok, t, -1).to(torch.int32)
+        mach = torch.where(ok, m, -1).to(torch.int32)
+        best = torch.where(room, crow, BIG).amin(1)   # the cancel wrapper
+        cancel = (task >= 0) & (best > dl) & bool(cancel_infeasible)
+        mapped = (task >= 0) & ~cancel
+        m_oh = (ids == mach[:, None]) & mapped[:, None]
+        avail = torch.where(m_oh, avail + eet_row, avail)
+        cnt = cnt + m_oh.to(torch.int32)
+        out_t.append(task)
+        out_m.append(mach)
+        out_c.append(cancel)
+    task = torch.stack(out_t, 1)
+    # the queue and the room only shrink within a trip, so the first
+    # no-op is final
+    use = torch.cumsum((task < 0).to(torch.int32), 1) == 0
+    return (task, torch.stack(out_m, 1), torch.stack(out_c, 1)), use, avail
+
+
+def _speculate_k(name: str, plan: Plan, state: S.SimState,
+                 view: SchedView, lcap: int, cancel_infeasible: bool,
+                 k: int, up: torch.Tensor | None):
+    """One speculative K-trip of the replicas of ``name`` (``rr``,
+    ``minmin`` or ``maxmin``): speculate K tasks under the frozen view,
+    decide all K views (view j without the j earlier speculated tasks)
+    in one batched call, then keep the longest sequentially consistent
+    prefix: the dispatched task is the speculated one, its machine
+    differs from every earlier mapped machine, the cancel verdict holds
+    under the corrected avail and room, and for policies outside
+    ``_SPECULATIVE_SAFE`` every earlier candidate was a cancel.
+    Candidate 0 is the true decision, so a trip applies at least one.
+    Returns (task, machine, cancel), the prefix mask and the avail after
+    the prefix, for the rows ``plan.rows[name]``."""
+    rows = plan.rows[name]
+    tasks = state.tasks
+
+    def sel(x):
+        return x if rows is None else x[rows]
+
+    in_batch, room, avail = sel(view.in_batch), sel(view.room), \
+        sel(view.avail)
+    any_room, mq_count = sel(view.any_room), sel(state.mq_count)
+    r, n = in_batch.shape
+    n_m = room.shape[1]
+    dev = in_batch.device
+    kind = _SPEC_ORDER[name]
+    if kind == "head":
+        spec = _first_k(in_batch, k)
+    else:
+        # each task's best frozen completion: it depends only on the
+        # task's type, so reduce the (R_p, T, M) table and gather
+        best_t = torch.where(room[:, None, :],
+                             avail[:, None, :] + plan.eet_m[name],
+                             BIG).amin(2)
+        best = best_t.gather(1, sel(tasks.type_id).long())
+        spec = _order_by_key(best if kind == "minmin" else -best,
+                             in_batch & any_room[:, None], k)
+
+    # view j: the queue without speculated tasks 0..j-1
+    steps = torch.arange(k, dtype=torch.int32, device=dev)
+    pos = torch.full((r, n + 1), k, dtype=torch.int32, device=dev)
+    pos.scatter_(1, torch.where(spec >= 0, spec, n).long(),
+                 steps.expand(r, k))
+    in_batch_k = in_batch[:, None, :] & (pos[:, None, :n]
+                                         >= steps[None, :, None])
+    any_k = in_batch_k.any(2)                                   # (R_p, k)
+    if name == "rr":
+        order = (torch.arange(n_m, device=dev)[None, :]
+                 + sel(state.rr_ptr)[:, None]) % n_m
+        pick = torch.argmax(room.gather(1, order.long()).to(torch.uint8), 1)
+        m = order.gather(1, pick[:, None])                      # (R_p, 1)
+        head_k = torch.where(any_k, torch.argmax(
+            in_batch_k.to(torch.uint8), 2), -1)
+        ok = (head_k >= 0) & any_room[:, None]
+        task = torch.where(ok, head_k, -1).to(torch.int32)
+        mach = torch.where(ok, m, -1).to(torch.int32)
+    else:
+        key = (name, k)
+        if key not in plan.eet_mk:
+            plan.eet_mk[key] = plan.eet_m[name].repeat_interleave(
+                k, 0).contiguous()
+
+        def rep(x):
+            return x.repeat_interleave(k, 0)
+
+        args = (rep(avail), in_batch_k.reshape(r * k, n), rep(room),
+                rep(sel(tasks.type_id)), plan.eet_mk[key])
+        ok = any_k & any_room[:, None]
+        if name == "minmin":
+            flat, _ = K.fused_minmin(*args)
+            flat = flat.view(r, k).clamp(min=0)
+            t, m = flat // n_m, flat % n_m
+        else:
+            t, m, _ = K.fused_maxmin(*args)
+            t, m = t.view(r, k), m.view(r, k)
+        task = torch.where(ok, t, -1).to(torch.int32)
+        mach = torch.where(ok, m, -1).to(torch.int32)
+    # the cancel wrapper of each view (frozen avail and room)
+    eet_t = _gather_rows(view.eet_nm, rows, task)               # (R_p, k, M)
+    dl = sel(tasks.deadline).gather(1, task.clamp(min=0).long())
+    best = torch.where(room[:, None, :], avail[:, None, :] + eet_t,
+                       BIG).amin(2)
+    ci = bool(cancel_infeasible)
+    cancel = (task >= 0) & (best > dl) & ci
+
+    # prefix corrections: per-machine map counts and expected-time adds
+    # of the earlier mapped candidates; with the prefix's machines
+    # distinct, each corrected machine takes one exact add
+    nonneg = task >= 0
+    mapped = nonneg & ~cancel
+    ids = torch.arange(n_m, device=dev)
+    moh = (mach.clamp(0, n_m - 1)[:, :, None] == ids) & mapped[:, :, None]
+    cnt = torch.cumsum(moh.to(torch.int32), 1, dtype=torch.int32) \
+        - moh.to(torch.int32)
+    add = torch.where(moh, eet_t, 0.0)
+    cum = torch.cumsum(add, 1) - add
+    avail_k = torch.where(cnt > 0, avail[:, None, :] + cum,
+                          avail[:, None, :])
+    room_k = (mq_count[:, None, :] + cnt) < lcap
+    if up is not None:
+        room_k = room_k & sel(up)[:, None, :]
+    conflict = nonneg & (cnt.gather(2, mach.clamp(0, n_m - 1).long()[
+        :, :, None])[:, :, 0] > 0)
+    best_k = torch.where(room_k, avail_k + eet_t, BIG).amin(2)
+    cancel_ok = (nonneg & ci & (best_k > dl)) == cancel
+    ok = nonneg & (task == spec) & ~conflict & cancel_ok
+    if name not in _SPECULATIVE_SAFE:
+        prior = torch.cumsum(mapped.to(torch.int32), 1) \
+            - mapped.to(torch.int32)
+        ok = ok & (prior == 0)
+    ok[:, 0] = True                       # candidate 0 is the true decision
+    use = (torch.cumsum((~ok).to(torch.int32), 1) == 0) & nonneg
+    moh_used = moh & use[:, :, None]
+    addv = torch.where(moh_used, eet_t, 0.0).sum(1)
+    avail_after = torch.where(moh_used.any(1), avail + addv, avail)
+    return (task, mach, cancel), use, avail_after
+
+
+def dispatch_k(plan: Plan, state: S.SimState, tables: S.StaticTables,
+               lcap: int, cancel_infeasible: bool, k: int,
+               const: tuple | None = None, *,
+               avail: torch.Tensor | None = None,
+               up: torch.Tensor | None = None
+               ) -> tuple[Decision, torch.Tensor, torch.Tensor]:
+    """One K-way drain trip: up to ``k`` sequential decisions of every
+    replica.  Returns the (R, k) ``Decision``, the (R, k) mask of the
+    prefix to apply (``engine._apply_decisions_k``) and the (R, M)
+    machine-available vector after that prefix; bitwise the sequential
+    drain's decisions and carry."""
+    view = build_view(state, tables, lcap, const, avail, up)
+    r = view.head.shape[0]
+    dev = view.head.device
+    task = torch.full((r, k), -1, dtype=torch.int32, device=dev)
+    mach = task.clone()
+    cancel = torch.zeros((r, k), dtype=torch.bool, device=dev)
+    use = cancel.clone()
+    av = view.avail
+    if any(n in _SCAN_RULES for n in plan.names):
+        (task, mach, cancel), use, av = _scan_k(
+            plan, state, view, lcap, cancel_infeasible, k, up)
+    for name in plan.names:
+        if name in _SCAN_RULES:
+            continue
+        (t, m, c), u, a = _speculate_k(name, plan, state, view, lcap,
+                                       cancel_infeasible, k, up)
+        rows = plan.rows[name]
+        if rows is None:
+            task, mach, cancel, use, av = t, m, c, u, a
+        else:
+            task = task.index_copy(0, rows, t)
+            mach = mach.index_copy(0, rows, m)
+            cancel = cancel.index_copy(0, rows, c)
+            use = use.index_copy(0, rows, u)
+            av = av.index_copy(0, rows, a)
+    return Decision(task, mach, cancel), use, av

@@ -14,6 +14,11 @@ A dynamic fleet is described by :class:`MachineDynamics` (down
 intervals, eviction semantics and DVFS multipliers per machine, again
 with a leading R axis); without one, ``speed`` and ``power_scale`` are
 ones and no machine ever goes down.
+
+A workflow (DAG) run adds an (R, N, K) parent table, padded with -1:
+``SimState.deps_left`` counts each task's parents that are not yet
+terminal, and :func:`dep_state` recomputes it, with the "some parent
+failed" flag, from the status column.
 """
 from __future__ import annotations
 
@@ -103,6 +108,8 @@ class SimState(_Batched):
     mq_count: torch.Tensor     # i32 (R, M) tasks waiting per machine queue
     n_batch: torch.Tensor      # i32 (R,)   batch-queue population
     n_live: torch.Tensor       # i32 (R,)   non-terminal population
+    deps_left: torch.Tensor | None = None   # i32 (R, N) parents not yet
+    #                            terminal (workflow runs; None otherwise)
 
 
 @dataclasses.dataclass
@@ -155,11 +162,44 @@ def machine_up(dyn: MachineDynamics, t: torch.Tensor) -> torch.Tensor:
     return ~((dyn.down_start <= t) & (t < dyn.down_end)).any(-1)
 
 
+def dep_index(parents: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gather index (R, N*K) of an (R, N, K) parent table, padding
+    clamped to task 0, and its (R, N, K) validity mask; computed once a
+    run, since the table never changes."""
+    r, n, k = parents.shape
+    idx = parents.clamp(0, max(n - 1, 0)).reshape(r, n * k).long()
+    return idx, parents >= 0
+
+
+def dep_state(status: torch.Tensor, parents: torch.Tensor,
+              index: tuple | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-task dependency summary from the status column (R, N).
+
+    ``parents`` is the (R, N, K) parent table, padded with -1; ``index``
+    optionally its precomputed :func:`dep_index`.  Returns ``(left,
+    failed)``: ``left`` (R, N) i32 counts the parents not yet terminal,
+    ``failed`` (R, N) bool is True where some parent terminated without
+    completing (such a task can never run)."""
+    idx, valid = dep_index(parents) if index is None else index
+    ps = status.gather(1, idx).view(parents.shape)
+    term = valid & (ps >= COMPLETED)
+    left = (valid & ~term).sum(2, dtype=torch.int32)
+    failed = (term & (ps != COMPLETED)).any(2)
+    return left, failed
+
+
+def is_terminal(status: torch.Tensor) -> torch.Tensor:
+    return status >= COMPLETED
+
+
 def init_state(tasks: TaskTable, mtype: torch.Tensor,
-               dynamics: MachineDynamics | None = None) -> SimState:
+               dynamics: MachineDynamics | None = None,
+               parents: torch.Tensor | None = None) -> SimState:
     """Initial state of every replica: all tasks NOT_ARRIVED, all
     machines idle, at the DVFS point of ``dynamics`` (full speed and
-    nominal power without one)."""
+    nominal power without one); with an (R, N, K) ``parents`` table,
+    ``deps_left`` counts each task's parents."""
     r, n = tasks.arrival.shape
     m = mtype.shape[-1]
     dev = tasks.arrival.device
@@ -203,6 +243,8 @@ def init_state(tasks: TaskTable, mtype: torch.Tensor,
         mq_count=full((r, m), 0, torch.int32),
         n_batch=full((r,), 0, torch.int32),
         n_live=full((r,), n, torch.int32),
+        deps_left=None if parents is None
+        else (parents >= 0).sum(2, dtype=torch.int32),
     )
 
 

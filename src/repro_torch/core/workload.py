@@ -1,11 +1,13 @@
 """Workload generation: numpy arrival draws, handed to torch at the end.
 
 A copy of the parts of ``repro.core.workload`` the port runs: the five
-arrival generators and their registry, the task-table conversion, and
-the dynamic-fleet inputs (``DVFS_STATES``, ``failure_trace``,
-``Scenario``, ``make_scenario``).  For the same seed every array is
-bit-equal to the reference's; only ``Scenario.dynamics`` differs, in
-returning the port's ``state.MachineDynamics``.
+arrival generators and their registry, the task-table conversion, the
+workflow (DAG) shapes (``Workflow``, ``upward_ranks``, the four
+generators and their registry), and the dynamic-fleet inputs
+(``DVFS_STATES``, ``failure_trace``, ``Scenario``, ``make_scenario``).
+For the same seed every array is bit-equal to the reference's; only
+``Scenario.dynamics`` differs, in returning the port's
+``state.MachineDynamics``.
 """
 from __future__ import annotations
 
@@ -210,6 +212,199 @@ def resolve_arrivals(names) -> tuple[str, ...]:
     if unknown:
         raise ValueError(f"unknown arrival generators {unknown}; known: "
                          f"{sorted(ARRIVAL_GENERATORS)}")
+    return names
+
+
+# ---------------------------------------------------------------------------
+# Workflows: precedence-constrained (DAG) workloads
+# ---------------------------------------------------------------------------
+@dataclass
+class Workflow:
+    """A workload whose tasks wait for their parents: ``parents[i, k]``
+    lists the tasks that must complete before task ``i`` enters the
+    system, padded with -1.  Task ids are a topological order
+    (``parents[i, k] < i``), and since ``Workload`` sorts by arrival the
+    arrivals must be nondecreasing in task id."""
+
+    workload: Workload
+    parents: np.ndarray     # (N, K) i32, -1 padded, parents[i, k] < i
+
+    def __post_init__(self):
+        self.parents = np.asarray(self.parents, np.int32)
+        if self.parents.ndim != 2 or \
+                self.parents.shape[0] != self.workload.n_tasks:
+            raise ValueError(
+                f"parents must be (n_tasks, K), got {self.parents.shape}")
+        ids = np.arange(self.workload.n_tasks)[:, None]
+        if np.any(self.parents >= ids) or np.any(self.parents < -1):
+            raise ValueError("parents must satisfy -1 <= parents[i, k] < i "
+                             "(task ids are a topological order)")
+        if np.any(np.diff(self.workload.arrival) < 0):
+            raise ValueError("workflow arrivals must be nondecreasing in "
+                             "task id (ids index the sorted workload)")
+
+    @property
+    def n_tasks(self) -> int:
+        return self.workload.n_tasks
+
+    @property
+    def n_edges(self) -> int:
+        return int((self.parents >= 0).sum())
+
+    def ranks(self, mean_eet: np.ndarray | None = None) -> np.ndarray:
+        """(N,) HEFT upward ranks; ``mean_eet`` is the per-type mean
+        execution time across machine types (``eet.eet.mean(axis=1)``)."""
+        if mean_eet is None:
+            w = np.ones(self.n_tasks, np.float64)
+        else:
+            w = np.asarray(mean_eet, np.float64)[self.workload.type_id]
+        return upward_ranks(self.parents, w)
+
+
+def upward_ranks(parents: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """HEFT upward rank ``rank(i) = w[i] + max over children rank(c)``:
+    one reverse sweep over the topological id order, in float64, cast to
+    float32 at the end."""
+    parents = np.asarray(parents)
+    rank = np.asarray(w, np.float64).copy()
+    w = np.asarray(w, np.float64)
+    for j in range(parents.shape[0] - 1, -1, -1):
+        for p in parents[j]:
+            if p >= 0:
+                rank[p] = max(rank[p], w[p] + rank[j])
+    return rank.astype(np.float32)
+
+
+def _assemble_workflow(parent_lists: list[list[int]], n_task_types: int,
+                       mean_eet: np.ndarray | None, t0: float,
+                       slack: float, slack_jitter: float,
+                       rng: np.random.Generator) -> Workflow:
+    """Common generator tail: types, deadlines scaled by each task's
+    expected critical-path length from the sources, padded table."""
+    n = len(parent_lists)
+    type_id = rng.integers(0, n_task_types, n)
+    me = np.ones(n_task_types, np.float32) if mean_eet is None \
+        else np.asarray(mean_eet, np.float32)
+    w = me[type_id].astype(np.float64)
+    cum = w.copy()
+    for i, ps in enumerate(parent_lists):
+        if ps:
+            cum[i] = w[i] + max(cum[p] for p in ps)
+    jitter = rng.lognormal(0.0, slack_jitter, n) if slack_jitter > 0 \
+        else np.ones(n)
+    deadline = (t0 + slack * jitter * cum).astype(np.float32)
+    k = max((len(ps) for ps in parent_lists), default=0) or 1
+    parents = np.full((n, k), -1, np.int32)
+    for i, ps in enumerate(parent_lists):
+        parents[i, :len(ps)] = sorted(ps)
+    wl = Workload(np.full(n, t0, np.float32), type_id, deadline)
+    return Workflow(wl, parents)
+
+
+def chain_workflow(n_tasks: int, n_task_types: int = 1, *,
+                   mean_eet: np.ndarray | None = None, t0: float = 0.0,
+                   slack: float = 4.0, slack_jitter: float = 0.0,
+                   seed: int = 0) -> Workflow:
+    """A single chain ``0 -> 1 -> ... -> n-1``."""
+    rng = np.random.default_rng(seed)
+    parent_lists = [[] if i == 0 else [i - 1] for i in range(n_tasks)]
+    return _assemble_workflow(parent_lists, n_task_types, mean_eet, t0,
+                              slack, slack_jitter, rng)
+
+
+def fork_join_workflow(n_branches: int, branch_len: int = 1,
+                       n_task_types: int = 1, *,
+                       mean_eet: np.ndarray | None = None, t0: float = 0.0,
+                       slack: float = 4.0, slack_jitter: float = 0.0,
+                       seed: int = 0) -> Workflow:
+    """Source -> ``n_branches`` parallel chains of ``branch_len`` ->
+    join (N = n_branches * branch_len + 2)."""
+    rng = np.random.default_rng(seed)
+    parent_lists: list[list[int]] = [[]]                       # source = 0
+    for b in range(n_branches):
+        for j in range(branch_len):
+            first = b * branch_len + 1
+            parent_lists.append([0] if j == 0 else [first + j - 1])
+    parent_lists.append([1 + b * branch_len + branch_len - 1
+                         for b in range(n_branches)])          # join
+    return _assemble_workflow(parent_lists, n_task_types, mean_eet, t0,
+                              slack, slack_jitter, rng)
+
+
+def map_reduce_workflow(n_maps: int, n_reduces: int = 1,
+                        n_task_types: int = 1, *,
+                        mean_eet: np.ndarray | None = None, t0: float = 0.0,
+                        slack: float = 4.0, slack_jitter: float = 0.0,
+                        seed: int = 0) -> Workflow:
+    """``n_maps`` independent maps, then ``n_reduces`` reduces that each
+    depend on every map."""
+    rng = np.random.default_rng(seed)
+    maps = list(range(n_maps))
+    parent_lists = [[] for _ in maps] + [list(maps)
+                                         for _ in range(n_reduces)]
+    return _assemble_workflow(parent_lists, n_task_types, mean_eet, t0,
+                              slack, slack_jitter, rng)
+
+
+def layered_workflow(n_tasks: int, n_task_types: int = 1, *,
+                     n_layers: int = 4, max_parents: int = 3,
+                     mean_eet: np.ndarray | None = None, t0: float = 0.0,
+                     slack: float = 4.0, slack_jitter: float = 0.0,
+                     seed: int = 0) -> Workflow:
+    """Seeded random layered DAG: ``n_layers`` contiguous layers, each
+    task after the first layer with 1 to ``max_parents`` distinct
+    parents drawn from the previous layer."""
+    if n_layers < 1:
+        raise ValueError("n_layers must be >= 1")
+    rng = np.random.default_rng(seed)
+    bounds = np.linspace(0, n_tasks, n_layers + 1).astype(int)
+    parent_lists: list[list[int]] = []
+    for layer in range(n_layers):
+        lo, hi = bounds[layer], bounds[layer + 1]
+        prev = list(range(bounds[layer - 1], lo)) if layer else []
+        for _ in range(lo, hi):
+            if not prev:
+                parent_lists.append([])
+            else:
+                k = int(rng.integers(1, min(max_parents, len(prev)) + 1))
+                parent_lists.append(sorted(
+                    rng.choice(len(prev), size=k, replace=False)))
+                parent_lists[-1] = [prev[j] for j in parent_lists[-1]]
+    return _assemble_workflow(parent_lists, n_task_types, mean_eet, t0,
+                              slack, slack_jitter, rng)
+
+
+# Named DAG shapes with one call shape, so an experiment can sweep the
+# shape: f(n_tasks, n_task_types, mean_eet, seed) -> Workflow
+WORKFLOW_GENERATORS = {
+    "chain": lambda n, ntt, me, seed: chain_workflow(
+        n, ntt, mean_eet=me, seed=seed),
+    "fork_join": lambda n, ntt, me, seed: fork_join_workflow(
+        max(n - 2, 1), 1, ntt, mean_eet=me, seed=seed),
+    "map_reduce": lambda n, ntt, me, seed: map_reduce_workflow(
+        max(n - max(n // 4, 1), 1), max(n // 4, 1), ntt, mean_eet=me,
+        seed=seed),
+    "layered": lambda n, ntt, me, seed: layered_workflow(
+        n, ntt, n_layers=4, mean_eet=me, seed=seed),
+}
+
+
+def register_workflow_generator(name: str, fn) -> None:
+    """Register ``fn(n_tasks, n_task_types, mean_eet, seed) ->
+    Workflow`` under ``name`` for ``WorkloadAxis(shapes=...)``;
+    duplicates raise."""
+    if name in WORKFLOW_GENERATORS:
+        raise ValueError(f"workflow generator {name!r} already registered")
+    WORKFLOW_GENERATORS[name] = fn
+
+
+def resolve_shapes(names) -> tuple[str, ...]:
+    """Validate DAG-shape names against the registry."""
+    names = tuple(names)
+    unknown = [n for n in names if n not in WORKFLOW_GENERATORS]
+    if unknown:
+        raise ValueError(f"unknown workflow generators {unknown}; known: "
+                         f"{sorted(WORKFLOW_GENERATORS)}")
     return names
 
 

@@ -1,9 +1,10 @@
 """Carry replica inputs across from the JAX package, as numpy arrays.
 
 ``replicas_from_numpy`` turns the reference's stacked inputs — a task
-table, the machine types, the static tables, the policy ids and, for a
-dynamic fleet, the machine dynamics, each with a leading replica axis —
-into the port's tensors, so both engines compute on the same data;
+table, the machine types, the static tables (HEFT ranks included), the
+policy ids, for a dynamic fleet the machine dynamics and for workflows
+the parent tables, each with a leading replica axis — into the port's
+tensors, so both engines compute on the same data;
 ``dynamics_from_numpy`` converts the dynamics alone;
 ``lm_params_from_numpy`` turns a language model's parameter tree into the
 port's parameters.  All read their inputs through ``numpy.asarray``,
@@ -39,13 +40,14 @@ def dynamics_from_numpy(dynamics, device="cuda") -> S.MachineDynamics:
 
 
 def replicas_from_numpy(tasks, mtype, tables, policy_ids, dynamics=None,
-                        device="cuda") -> Replicas:
+                        parents=None, device="cuda") -> Replicas:
     """``tasks``: anything with ``arrival``/``type_id``/``deadline``
     (R, N) columns; ``tables``: anything with ``eet`` (R, T, Mt),
     ``power`` (R, Mt, 2), ``noise`` (R, N) and ``rank`` (R, N);
     ``mtype`` (R, M); ``policy_ids`` (R,); ``dynamics`` None or what
-    ``dynamics_from_numpy`` takes.  Arrays of any kind that
-    ``numpy.asarray`` reads."""
+    ``dynamics_from_numpy`` takes; ``parents`` None or (R, N, K) parent
+    tables padded with -1.  Arrays of any kind that ``numpy.asarray``
+    reads."""
     dev = resolve_device(device)
 
     def put(x, np_dtype, dtype):
@@ -63,7 +65,8 @@ def replicas_from_numpy(tasks, mtype, tables, policy_ids, dynamics=None,
         S.StaticTables(eet=f32(tables.eet), power=f32(tables.power),
                        noise=f32(tables.noise), rank=f32(tables.rank)),
         put(policy_ids, np.int32, torch.int32),
-        None if dynamics is None else dynamics_from_numpy(dynamics, dev))
+        None if dynamics is None else dynamics_from_numpy(dynamics, dev),
+        None if parents is None else put(parents, np.int32, torch.int32))
 
 
 def lm_params_from_numpy(tree, cfg, device="cuda") -> dict:

@@ -1,8 +1,8 @@
 """ExperimentSpec for flat and scenario sweeps: spec -> normalize -> run.
 
-The counterpart of ``repro.launch.experiment`` for independent tasks on
-a static or dynamic fleet: the same axes, the same per-replica random
-draws, the same summary columns.
+The counterpart of ``repro.launch.experiment`` for independent tasks and
+workflows (DAGs) on a static or dynamic fleet: the same axes, the same
+per-replica random draws, the same summary columns.
 
   spec       :class:`ExperimentSpec` — ``FleetAxis x WorkloadAxis x
              ScenarioAxis x PolicyAxis``, mixed radix over the replica
@@ -10,15 +10,21 @@ draws, the same summary columns.
              ``(r // n_p) % n_a``; with a scenario axis, fail rate
              ``r % n_f``, DVFS state ``(r // n_f) % n_d``, policy
              ``(r // (n_f n_d)) % n_p`` and arrival process
-             ``(r // (n_f n_d n_p)) % n_a``.
-  normalize  :func:`normalize` — draw every replica on the host with
-             numpy, from the substream ``default_rng([seed, r])`` in the
-             reference's order, and hand the stacked tables to torch.
+             ``(r // (n_f n_d n_p)) % n_a``; in workflow mode
+             (``WorkloadAxis(shapes=...)``) replicas come in *paired*
+             cells: the ``n_p`` consecutive replicas of cell ``r // n_p``
+             share one DAG, EET draw, fleet and failure trace and run
+             policy ``r % n_p``; shape ``cell % n_s``, fail rate
+             ``(cell // n_s) % n_f``, DVFS ``(cell // (n_s n_f)) % n_d``.
+  normalize  :func:`normalize` — draw every replica (or workflow cell) on
+             the host with numpy, from the reference's substreams in
+             the reference's order, and hand the stacked tables to
+             torch; parent tables pad to the grid's widest in-degree.
   execute    :func:`run_experiment` — normalize + ``engine.run_sweep`` +
              :func:`summarize_replica` on the device.
 
-Workflow, streaming, tracing, metrics and learned-policy cells are later
-slices of the port; their axes do not exist here yet.
+Streaming, tracing, metrics and learned-policy cells are later slices
+of the port; their axes do not exist here yet.
 """
 from __future__ import annotations
 
@@ -34,9 +40,10 @@ from repro_torch.core import schedulers as P
 from repro_torch.core import state as S
 from repro_torch.core.eet import synth_eet
 from repro_torch.core.reduce import ordered_sum
-from repro_torch.core.workload import (ARRIVAL_GENERATORS, make_scenario,
+from repro_torch.core.workload import (ARRIVAL_GENERATORS,
+                                       WORKFLOW_GENERATORS, make_scenario,
                                        poisson_workload, resolve_arrivals,
-                                       task_table)
+                                       resolve_shapes, task_table)
 
 __all__ = ["FleetAxis", "WorkloadAxis", "ScenarioAxis", "PolicyAxis",
            "ExperimentSpec", "Replicas", "ExperimentResult", "normalize",
@@ -91,16 +98,25 @@ class FleetAxis:
 class WorkloadAxis:
     """The task side: ``n_tasks`` tasks at ``rate``.  ``arrivals`` names
     ``workload.ARRIVAL_GENERATORS`` entries and makes the arrival process
-    a grid axis (None = Poisson everywhere)."""
+    a grid axis (None = Poisson everywhere).  ``shapes`` names
+    ``workload.WORKFLOW_GENERATORS`` entries and switches the experiment
+    to workflow mode; the two are mutually exclusive."""
     n_tasks: int
     n_task_types: int = 4
     rate: float = 4.0
     arrivals: tuple[str, ...] | None = None
+    shapes: tuple[str, ...] | None = None
 
     def __post_init__(self):
+        if self.arrivals is not None and self.shapes is not None:
+            raise ValueError("WorkloadAxis takes arrivals OR shapes, not "
+                             "both (DAG generators emit their own arrival "
+                             "times)")
         if self.arrivals is not None:
             object.__setattr__(self, "arrivals",
                                resolve_arrivals(self.arrivals))
+        if self.shapes is not None:
+            object.__setattr__(self, "shapes", resolve_shapes(self.shapes))
 
 
 @dataclass(frozen=True)
@@ -151,6 +167,10 @@ class ExperimentSpec:
             raise ValueError(f"n_replicas must be >= 1, got "
                              f"{self.n_replicas}")
 
+    @property
+    def workflow(self) -> bool:
+        return self.workload.shapes is not None
+
 
 @dataclass
 class Replicas:
@@ -160,6 +180,7 @@ class Replicas:
     tables: S.StaticTables
     policy_ids: torch.Tensor   # i32 (R,)
     dynamics: S.MachineDynamics | None = None
+    parents: torch.Tensor | None = None   # i32 (R, N, K), -1 padded
 
     @property
     def n_replicas(self) -> int:
@@ -228,11 +249,87 @@ def _draw_flat_replica(spec: ExperimentSpec, r: int) -> dict:
     return out
 
 
+def _draw_workflow_cell(spec: ExperimentSpec, cell: int) -> dict:
+    """One workflow cell, shared by its ``n_p`` paired replicas and fully
+    determined by ``(spec, cell)``: the draws (power, spot, noise, mtype,
+    in that order) come from ``default_rng(seed + 104729 * cell)``, the
+    EET table, the DAG and the failure trace from their own seeds, as
+    the reference draws them.  Workflow cells always carry dynamics."""
+    wk, fl = spec.workload, spec.fleet
+    sc = spec.scenario or ScenarioAxis()
+    n_s, n_f = len(wk.shapes), len(sc.fail_rates)
+    crng = np.random.default_rng(spec.seed + 104729 * cell)
+    eet = synth_eet(wk.n_task_types, fl.n_machine_types, inconsistency=0.3,
+                    seed=spec.seed + cell)
+    power = _draw_power(crng, fl.n_machine_types)
+    gen = WORKFLOW_GENERATORS[wk.shapes[cell % n_s]]
+    wf = gen(wk.n_tasks, wk.n_task_types, eet.eet.mean(1),
+             spec.seed + 7919 * cell)
+    scen = make_scenario(
+        wf.workload, fl.n_machines,
+        fail_rate=sc.fail_rates[(cell // n_s) % n_f],
+        mttr=sc.mttr, spot=(crng.random() < sc.spot_frac),
+        dvfs=sc.dvfs_states[(cell // (n_s * n_f)) % len(sc.dvfs_states)],
+        n_intervals=sc.n_intervals, seed=spec.seed + 31 * cell)
+    noise = crng.lognormal(0.0, 0.1, wk.n_tasks).astype(np.float32)
+    mt = crng.integers(0, fl.n_machine_types, fl.n_machines)
+    wl = wf.workload
+    return dict(arrival=wl.arrival, type_id=wl.type_id, deadline=wl.deadline,
+                eet=eet.eet, power=power, noise=noise, mtype=mt,
+                rank=wf.ranks(eet.eet.mean(1)), parents=wf.parents,
+                speed=scen.speed, power_scale=scen.power_scale,
+                down_start=scen.down_start, down_end=scen.down_end,
+                kill=scen.kill)
+
+
+def _workflow_kmax(spec: ExperimentSpec) -> int:
+    """The grid-wide widest DAG in-degree, the parent tables' pad width:
+    a generate-and-discard pass over the cells (DAG generation is
+    deterministic per cell), equal to the width :func:`normalize`
+    pads to."""
+    wk, fl = spec.workload, spec.fleet
+    n_p = len(spec.policy.policies)
+    km = 0
+    for cell in range(-(-spec.n_replicas // n_p)):
+        eet = synth_eet(wk.n_task_types, fl.n_machine_types,
+                        inconsistency=0.3, seed=spec.seed + cell)
+        gen = WORKFLOW_GENERATORS[wk.shapes[cell % len(wk.shapes)]]
+        wf = gen(wk.n_tasks, wk.n_task_types, eet.eet.mean(1),
+                 spec.seed + 7919 * cell)
+        km = max(km, wf.parents.shape[1])
+    return km
+
+
+def _materialize_workflow(spec: ExperimentSpec
+                          ) -> tuple[list[dict], np.ndarray]:
+    """Workflow mode: one draw per cell, shared by its paired replicas
+    (policy ``r % n_p``), and the (R, N, K) parent tables padded with -1
+    to the grid's widest in-degree."""
+    policies = spec.policy.policies
+    n_p = len(policies)
+    draws = []
+    for cell in range(-(-spec.n_replicas // n_p)):
+        d = _draw_workflow_cell(spec, cell)
+        for p in range(min(n_p, spec.n_replicas - cell * n_p)):
+            draws.append({**d, "policy": P.POLICY_IDS[policies[p]]})
+    k_max = max(d["parents"].shape[1] for d in draws)
+    parents = np.full((spec.n_replicas, spec.workload.n_tasks, k_max), -1,
+                      np.int32)
+    for i, d in enumerate(draws):
+        parents[i, :, :d["parents"].shape[1]] = d["parents"]
+    return draws, parents
+
+
 def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
     """Draw every replica of the spec on the host and stack the inputs
     on ``device`` (numpy draws, bit-equal to the reference's)."""
     dev = resolve_device(device)
-    draws = [_draw_flat_replica(spec, r) for r in range(spec.n_replicas)]
+    parents = None
+    if spec.workflow:
+        draws, parents = _materialize_workflow(spec)
+    else:
+        draws = [_draw_flat_replica(spec, r)
+                 for r in range(spec.n_replicas)]
 
     def stack(key, dtype):
         return np.stack([d[key] for d in draws]).astype(dtype)
@@ -248,10 +345,11 @@ def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
         eet=put("eet", np.float32, torch.float32),
         power=put("power", np.float32, torch.float32),
         noise=put("noise", np.float32, torch.float32),
-        rank=torch.zeros((spec.n_replicas, n), dtype=torch.float32,
+        rank=put("rank", np.float32, torch.float32) if spec.workflow
+        else torch.zeros((spec.n_replicas, n), dtype=torch.float32,
                          device=dev))
     dyn = None
-    if spec.scenario is not None:
+    if spec.scenario is not None or spec.workflow:
         dyn = S.MachineDynamics(
             speed=put("speed", np.float32, torch.float32),
             power_scale=put("power_scale", np.float32, torch.float32),
@@ -260,7 +358,9 @@ def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
             kill=put("kill", bool, torch.bool))
     return Replicas(tasks, put("mtype", np.int32, torch.int32), tables,
                     torch.as_tensor([d["policy"] for d in draws],
-                                    dtype=torch.int32, device=dev), dyn)
+                                    dtype=torch.int32, device=dev), dyn,
+                    None if parents is None
+                    else torch.as_tensor(parents, device=dev))
 
 
 @dataclass
@@ -298,6 +398,6 @@ def run_experiment(spec: ExperimentSpec, *, device="cuda",
     dev = resolve_device(device)
     reps = replicas if replicas is not None else normalize(spec, dev)
     st = E.run_sweep(reps.tasks, reps.mtype, reps.tables, reps.policy_ids,
-                     spec.sim, stats, reps.dynamics)
+                     spec.sim, stats, reps.dynamics, reps.parents)
     return ExperimentResult(
         spec, reps, summarize_replica(st, reps.tables, reps.dynamics), st)

@@ -120,7 +120,19 @@ def _cases(name: str) -> dict:
         cases.update({f"random {s}": inst(*s) for s in (
             (6, 40, 33, 3), (6, 40, 64, 5), (6, 40, 6, 1),
             (4, 128, 8, 64), (5, 4, 7, 9), (2, 7000, 4, 6096),
-            (2, 7000, 4, 6097), (4, 1001, 33, 3), (409, 1024, 32, 4))})
+            (2, 7000, 4, 6097), (4, 1001, 33, 3), (409, 1024, 32, 4),
+            (3280, 1024, 32, 4))})
+        # the K-way drain's speculative views: K = 8 consecutive rows per
+        # replica share avail, room and types, each row's batch the
+        # previous one less one task
+        a, ib, rm, tid, e = inst(6, 128, 8, 3)
+        views = np.repeat(ib, 8, 0)
+        for j in range(1, 8):
+            prev = views[j - 1::8].copy()
+            prev[np.arange(6), np.argmax(prev, 1)] = False
+            views[j::8] = prev
+        cases["K = 8 views"] = tuple(np.repeat(x, 8, 0) if x is not ib
+                                     else views for x in (a, ib, rm, tid, e))
         return {k: (v, {}) for k, v in cases.items()}
     if name == "fused_start_pick":
         # the captured main-path shape and N % 4 != 0, the most machines
@@ -156,6 +168,11 @@ def _cases(name: str) -> dict:
     cases["empty (+inf)"] = (np.full((4, 50), 7, i32), z, z)
     cases["-0.0/+0.0 and +inf"] = (rng.integers(0, 4, (4, 50)).astype(i32),
                                    z, np.full((4, 50), np.inf, f32))
+    # the workflow path hides tasks that wait on a parent as status -1
+    cases["dep-blocked tasks as -1"] = (
+        rng.integers(-1, 8, (64, 1024)).astype(i32),
+        rng.uniform(0, 100, (64, 1024)).astype(f32),
+        rng.uniform(0, 200, (64, 1024)).astype(f32))
     return {k: (v, kw) for k, v in cases.items()}
 
 
@@ -252,6 +269,31 @@ def test_cuda_scenario_path_launches_every_kernel(cuda_device):
     _launches_all_and_matches_cpu(TX, spec, cuda_device)
 
 
+def test_cuda_workflow_path_launches_every_kernel(cuda_device):
+    """Workflow mode: all four DAG shapes, failures, ten policies."""
+    from repro_torch.launch import experiment as TX
+    spec = TX.ExperimentSpec(
+        40, TX.FleetAxis(4),
+        TX.WorkloadAxis(32, shapes=("chain", "fork_join", "map_reduce",
+                                    "layered")),
+        scenario=TX.ScenarioAxis(fail_rates=(0.0, 0.3)),
+        policy=TX.PolicyAxis(POLICIES), seed=5)
+    _launches_all_and_matches_cpu(TX, spec, cuda_device)
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_cuda_kway_path_launches_every_kernel(cuda_device, k):
+    """The K-way drain on a deep queue (fast arrivals, ``lcap=12``): the
+    speculative pair calls at R_p * K rows and the scan's picks."""
+    from repro_torch.core import engine as TE
+    from repro_torch.launch import experiment as TX
+    spec = TX.ExperimentSpec(40, TX.FleetAxis(6),
+                             TX.WorkloadAxis(64, rate=50.0),
+                             policy=TX.PolicyAxis(POLICIES),
+                             sim=TE.SimParams(lcap=12, drain_k=k), seed=5)
+    _launches_all_and_matches_cpu(TX, spec, cuda_device)
+
+
 def _launches_all_and_matches_cpu(TX, spec, dev):
     TK.reset_launches()
     on_card = TX.run_experiment(spec, device=dev)
@@ -260,6 +302,12 @@ def _launches_all_and_matches_cpu(TX, spec, dev):
     on_cpu = TX.run_experiment(spec, device="cpu")
     for key, col in on_cpu.metrics.items():
         assert torch.equal(_bits(on_card.metrics[key]), _bits(col)), key
+    for group in ("tasks", "machines"):
+        card, cpu = getattr(on_card.state, group), getattr(on_cpu.state,
+                                                           group)
+        for f in cpu.__dataclass_fields__:
+            assert torch.equal(_bits(getattr(card, f)),
+                               _bits(getattr(cpu, f))), f
 
 
 MODEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
