@@ -4,7 +4,8 @@
 
     python3 chip_smoke.py --paths serve --serve-tiny   # short first call
     python3 chip_smoke.py --replicas 512 --flat-replicas 512   # short
-    python3 chip_smoke.py --paths workflow,flat_k8     # the new paths
+    python3 chip_smoke.py --paths workflow,flat_k8
+    python3 chip_smoke.py --paths traced --traced-replicas 512   # short
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
@@ -36,6 +37,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  last end), cascade cancels present;
        flat_k8   the flat spec with ``SimParams(drain_k=8)``: its final
                  state bitwise the K = 1 flat run's on the card;
+       traced    the scenario spec with ``trace=True, metrics=True``:
+                 every final state bitwise the untraced scenario run's,
+                 the same host reads, no trace overflowed, per replica N
+                 terminal rows and every start row closed by a later
+                 row of its task, the histograms and SLO windows summing
+                 to the completed and missed counts and the queue-depth
+                 samples to the event count; one replica's HTML report
+                 and telemetry dashboard written under ``build/``;
        serve     ``ServingEngine(run_mode="real")``, ee_mct over 4
                  machines of 2 types, 8 Poisson requests of two apps:
                  qwen2-1.5b as published (28 layers) and deepseek-moe-16b
@@ -46,7 +55,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  often as the shapes imply;
   5. card vs CPU: a 64 x 128 x 8 flat sweep, scenario sweep, workflow
      sweep (all four DAG shapes) and flat sweep at K = 8 on the card and
-     on the CPU must give bitwise-equal final states and summaries; the
+     on the CPU must give bitwise-equal final states and summaries; with
+     the traced path, flat, scenario and workflow traced with metrics
+     bitwise-equal trace rows, snapshots, counts and tail columns, and a
+     registered user policy in a mixed-id sweep bitwise the CPU run, its
+     machine pick one ``masked_argmin`` launch a drain trip; the
      tiny configurations of both apps through the same
      ``ServingEngine`` on both, the card teacher-forced with the CPU's
      tokens, must agree on every logit to atol = rtol = 1e-4 and on the
@@ -92,7 +105,7 @@ SCENARIO = dict(fail_rates=(0.0, 0.05, 0.1),
 WORKFLOW_SCENARIO = dict(fail_rates=(0.0, 0.05))
 SHAPES = ("chain", "layered")         # the workflow path at full width
 ALL_SHAPES = ("chain", "fork_join", "map_reduce", "layered")   # phase 5
-PATHS = ("flat", "scenario", "workflow", "flat_k8")   # the sweep paths
+PATHS = ("flat", "scenario", "workflow", "flat_k8", "traced")  # sweeps
 ALL_PATHS = PATHS + ("serve",)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -395,20 +408,23 @@ def capturing(K, at):
 
 
 def make_spec(X, E, path, n_rep, n_tasks, n_mach, seed=0, max_events=None,
-              shapes=SHAPES):
+              shapes=SHAPES, traced=None):
     """The spec of a sweep path (``PATHS``); ``shapes`` are the workflow
-    path's DAG shapes."""
+    path's DAG shapes; ``traced`` turns trace and metrics on (default:
+    on the traced path only)."""
     scenario = {"scenario": X.ScenarioAxis(**SCENARIO),
+                "traced": X.ScenarioAxis(**SCENARIO),
                 "workflow": X.ScenarioAxis(**WORKFLOW_SCENARIO)}.get(path)
     workload = X.WorkloadAxis(n_tasks, shapes=shapes
                               if path == "workflow" else None)
     drain_k = 8 if path == "flat_k8" else 1
+    traced = path == "traced" if traced is None else traced
     return X.ExperimentSpec(n_rep, X.FleetAxis(n_mach), workload,
                             scenario=scenario,
                             policy=X.PolicyAxis(POLICIES),
                             sim=E.SimParams(max_events=max_events,
                                             drain_k=drain_k),
-                            seed=seed)
+                            trace=traced, metrics=traced, seed=seed)
 
 
 def check_workflow(S, reps, st) -> tuple[int, int]:
@@ -487,7 +503,7 @@ def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
         col = res.metrics[key]
         if not bool(((col >= 0) & (col <= 1)).all()):
             raise AssertionError(f"{key} outside [0, 1]")
-    if path == "scenario" and not int(st.n_preempts.sum()):
+    if path in ("scenario", "traced") and not int(st.n_preempts.sum()):
         raise AssertionError("the scenario path evicted no task")
     if path == "workflow":
         cascade, waited = check_workflow(S, reps, st)
@@ -513,8 +529,25 @@ def recheck_captured(K, KREF, captured, path) -> None:
                 "bitwise equal")
 
 
-def card_vs_cpu(X, E, dev, path) -> None:
-    spec = make_spec(X, E, path, 64, 128, 8, seed=1, shapes=ALL_SHAPES)
+def trace_fields(st) -> dict:
+    """The trace's valid rows (the spare column cut), ``n_rows``, the
+    snapshots and the metrics counts of a traced state."""
+    tb, mt = st.trace, st.metrics
+    cap = tb.cap
+    pos = torch.arange(cap, device=tb.n_rows.device)
+    valid = pos[None, :] < tb.n_rows[:, None]
+    out = {f: torch.where(valid, getattr(tb, f)[:, :cap], 0) for f in
+           ("ev_time", "ev_kind", "ev_task", "ev_machine")}
+    out.update({f: getattr(tb, f) for f in
+                ("n_rows", "snap_time", "snap_batch", "snap_mq",
+                 "snap_running", "snap_energy")})
+    out.update({f: getattr(mt, f) for f in mt._FIELDS})
+    return out
+
+
+def card_vs_cpu(X, E, dev, path, traced=None) -> None:
+    spec = make_spec(X, E, path, 64, 128, 8, seed=1, shapes=ALL_SHAPES,
+                     traced=traced)
     on_card = X.run_experiment(spec, device=dev)
     on_cpu = X.run_experiment(spec, device="cpu")
     bitwise_equal(fields(on_card.state), fields(on_cpu.state),
@@ -523,8 +556,59 @@ def card_vs_cpu(X, E, dev, path) -> None:
                   f"{path}: card != CPU in the summary")
     what = f"{path} sweep" + (f" ({', '.join(ALL_SHAPES)})"
                               if path == "workflow" else "")
+    extra = ""
+    if spec.trace:
+        bitwise_equal(trace_fields(on_card.state),
+                      trace_fields(on_cpu.state),
+                      f"{path}: card != CPU in the trace or the counts")
+        rows = int(on_card.state.trace.n_rows.sum())
+        extra = (f", traced with metrics: {rows} trace rows, the "
+                 "snapshots, histogram and window counts and tail columns")
     log("5 card=cpu", f"64x128x8 {what}: every state field and summary "
-        "column bitwise equal to the CPU run")
+        f"column{extra} bitwise equal to the CPU run")
+
+
+def smoke_mct(state, view):
+    """A user policy: minimum expected completion for the head task (a
+    re-implementation of ``mct``)."""
+    scores = torch.where((view.head >= 0)[:, None],
+                         view.completion_row(view.head), 1e30)
+    return view.head, scores, view.room
+
+
+def user_policy_on_card(X, E, K, P, dev) -> None:
+    """A registered policy on the card: alone, its machine pick is one
+    ``masked_argmin`` launch a drain trip; in a mixed-id sweep beside
+    built-ins the run is bitwise the CPU run."""
+    if "smoke_mct" not in P.POLICY_IDS:
+        P.register_policy("smoke_mct", smoke_mct)
+    phase = "5 user policy"
+
+    def spec(policies):
+        return X.ExperimentSpec(64, X.FleetAxis(8), X.WorkloadAxis(128),
+                                policy=X.PolicyAxis(policies), seed=3)
+    saved = dict(K.launches)
+    K.reset_launches()
+    stats = E.RunStats()
+    X.run_experiment(spec(("smoke_mct",)), device=dev, stats=stats)
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    K.launches.update(saved)
+    if launches["masked_argmin"] != stats.drain_trips or \
+            not stats.drain_trips:
+        raise AssertionError(f"user policy: {launches['masked_argmin']} "
+                             f"masked_argmin launches for "
+                             f"{stats.drain_trips} drain trips")
+    mixed = spec(("mct", "smoke_mct", "minmin", "fcfs", "rr"))
+    on_card = X.run_experiment(mixed, device=dev)
+    on_cpu = X.run_experiment(mixed, device="cpu")
+    bitwise_equal(fields(on_card.state), fields(on_cpu.state),
+                  "user policy: card != CPU")
+    log(phase, f"smoke_mct registered as id {P.POLICY_IDS['smoke_mct']}: "
+        f"alone {launches['masked_argmin']} masked_argmin launches for "
+        f"{stats.drain_trips} drain trips; mixed with mct, minmin, fcfs "
+        f"and rr at 64x128x8, every state field bitwise equal to the CPU "
+        f"run")
 
 
 def check_k8(X, E, dev, res, stats, wall, flat_run, n_tasks, n_mach
@@ -550,6 +634,116 @@ def check_k8(X, E, dev, res, stats, wall, flat_run, n_tasks, n_mach
         f"{stats1.drain_trips}), host reads {stats.host_reads} "
         f"({stats1.host_reads}), execute {wall:.3f} s "
         f"({wall1:.3f} s)")
+
+
+def check_trace_on_card(S, T, st, n_tasks) -> int:
+    """The traced run's invariants, on the card: no overflow, N terminal
+    rows a replica, every start row followed (in its task's rows) by a
+    row that closes the segment, the response histogram and the
+    completion windows summing to the completed count, the miss windows
+    to the missed count and the queue-depth samples to the event count.
+    Returns the trace rows."""
+    tb, mt = st.trace, st.metrics
+    if bool((tb.n_rows > tb.cap).any()):
+        raise AssertionError("traced: a trace overflowed its capacity")
+    cap = tb.cap
+    pos = torch.arange(cap + 1, device=tb.n_rows.device)
+    valid = pos[None, :] < tb.n_rows[:, None]
+    kind = torch.where(valid, tb.ev_kind, -1)
+    terminal = torch.tensor([T.EV_COMPLETE, T.EV_PREEMPT, T.EV_MISS_QUEUE,
+                             T.EV_MISS_RUNNING, T.EV_CANCEL],
+                            device=kind.device)
+    n_term = torch.isin(kind, terminal).sum(1)
+    if not bool((n_term == n_tasks).all()):
+        raise AssertionError("traced: a replica's terminal rows are not N")
+    # each task's rows in emission order: sort by (task, position)
+    key = torch.where(valid, tb.ev_task.long() * (cap + 1) + pos,
+                      torch.iinfo(torch.int64).max)
+    order = torch.argsort(key, dim=1)
+    k_s = kind.gather(1, order)
+    t_s = tb.ev_task.gather(1, order)
+    start = k_s == T.EV_START
+    closers = torch.tensor(T.SEGMENT_CLOSERS, device=kind.device)
+    closed = start[:, :-1] & (t_s[:, 1:] == t_s[:, :-1]) & torch.isin(
+        k_s[:, 1:], closers)
+    if not bool((closed.sum(1) == start.sum(1)).all()):
+        raise AssertionError("traced: a start row is not closed")
+    status = st.tasks.status
+    done = (status == S.COMPLETED).sum(1, dtype=torch.int32)
+    missed = ((status == S.MISSED_QUEUE) | (status == S.MISSED_RUNNING)
+              ).sum(1, dtype=torch.int32)
+    for name, got, want in (
+            ("response", mt.response.sum(1), done),
+            ("win_done", mt.win_done.sum(1), done),
+            ("win_miss", mt.win_miss.sum(1), missed),
+            ("queue_depth", mt.queue_depth.sum(1), st.n_events)):
+        if not bool((got == want).all()):
+            raise AssertionError(f"traced: the {name} counts do not sum "
+                                 "to their population")
+    return int(tb.n_rows.sum())
+
+
+def check_traced(X, E, S, dev, res, stats, wall, plain_run, n_tasks,
+                 n_mach) -> None:
+    """The traced path against the untraced scenario run on the card
+    (``plain_run``: its (fields, stats, execute seconds) at the same
+    width, or None to run it here), the trace's invariants, and one
+    replica's reports written under ``build/``."""
+    from repro_torch.core import trace as T
+    from repro_torch.core import viz
+    n_rep = res.replicas.n_replicas
+    if plain_run is None:
+        stats1 = E.RunStats()
+        spec = make_spec(X, E, "scenario", n_rep, n_tasks, n_mach)
+        t0 = time.perf_counter()
+        ref = X.run_experiment(spec, device=dev, replicas=res.replicas,
+                               stats=stats1)
+        torch.cuda.synchronize()
+        plain_run = (fields(ref.state), stats1, time.perf_counter() - t0)
+        del ref
+    want, stats1, wall1 = plain_run
+    bitwise_equal(fields(res.state), want, "traced != scenario")
+    if stats.host_reads != stats1.host_reads or \
+            stats.events != stats1.events:
+        raise AssertionError(f"traced: host reads {stats.host_reads} / "
+                             f"events {stats.events} against "
+                             f"{stats1.host_reads} / {stats1.events}")
+    st = res.state
+    rows = check_trace_on_card(S, T, st, n_tasks)
+    tb = st.trace
+    snap_bytes = sum(getattr(tb, f).numel() * getattr(tb, f).element_size()
+                     for f in ("snap_time", "snap_batch", "snap_mq",
+                               "snap_running", "snap_energy"))
+    row_bytes = sum(getattr(tb, f).numel() * getattr(tb, f).element_size()
+                    for f in ("ev_time", "ev_kind", "ev_task",
+                              "ev_machine"))
+    log("4 traced", f"final state bitwise equal to the untraced scenario "
+        f"run's at {n_rep} replicas; host reads {stats.host_reads} "
+        f"({stats1.host_reads}), event steps {stats.events} "
+        f"({stats1.events}); execute traced {wall:.3f} s, untraced "
+        f"{wall1:.3f} s; {rows} trace rows ({rows / n_rep:.1f} a replica, "
+        f"capacity {tb.cap}, none overflowed), buffers: rows "
+        f"{row_bytes / 2**30:.2f} GiB, snapshots {snap_bytes / 2**30:.2f} "
+        f"GiB (E = {tb.max_events}); terminal rows N, every start closed, "
+        f"counts sum to their populations")
+    tails = {k: float(res.metrics[k].mean()) for k in
+             ("resp_p50", "resp_p95", "resp_p99", "qdepth_p99")}
+    log("4 traced", f"mean tail columns over replicas {json.dumps(tails)}")
+    i = int(torch.argmax(res.metrics["preempted"] + res.metrics["requeues"]))
+    out = os.path.join(ROOT, "build")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    html = viz.html_report(st, dynamics=res.replicas.dynamics,
+                           metrics=st.metrics, replica=i,
+                           title=f"E2C port, traced replica {i}")
+    dash = viz.metrics_dashboard(st.metrics, replica=i)
+    for name, text in (("traced_report.html", html),
+                       ("traced_dashboard.svg", dash)):
+        viz.save(os.path.join(out, name), text)
+        log("4 traced", f"build/{name}: {len(text.encode())} bytes")
+    log("4 traced", f"replica {i}: {len(T.segments(T.replica_trace(tb, i)))}"
+        f" execution segments; reports rendered in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1422,6 +1616,8 @@ def main() -> int:
                     help="replicas of the workflow path")
     ap.add_argument("--k8-replicas", type=int, default=4096,
                     help="replicas of the flat path at K = 8")
+    ap.add_argument("--traced-replicas", type=int, default=4096,
+                    help="replicas of the traced path")
     ap.add_argument("--tasks", type=int, default=1024)
     ap.add_argument("--machines", type=int, default=32)
     ap.add_argument("--paths", default=",".join(ALL_PATHS),
@@ -1436,7 +1632,8 @@ def main() -> int:
         ap.error(f"--paths takes {ALL_PATHS}")
     sweeps = [p for p in PATHS if p in paths]
     width = {"flat": a.flat_replicas, "scenario": a.replicas,
-             "workflow": a.workflow_replicas, "flat_k8": a.k8_replicas}
+             "workflow": a.workflow_replicas, "flat_k8": a.k8_replicas,
+             "traced": a.traced_replicas}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
@@ -1446,6 +1643,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.core import engine as E
+    from repro_torch.core import schedulers as P
     from repro_torch.core import state as S
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
@@ -1479,18 +1677,26 @@ def main() -> int:
     errs = check_kernels(K, KREF, dev)
     errs.update(check_model_kernels(mods, dev))
     launches, captured = {}, {}
-    flat_run = None
+    flat_run = scenario_run = None
     for path in sweeps:
         res, launches[path], captured[path], stats, wall = run_main(
             X, E, K, S, dev, path, width[path], a.tasks, a.machines)
         if path == "flat" and "flat_k8" in sweeps \
                 and width["flat"] == width["flat_k8"]:
             flat_run = (fields(res.state), stats, wall)
+        if path == "scenario" and "traced" in sweeps \
+                and width["scenario"] == width["traced"]:
+            scenario_run = (fields(res.state), stats, wall)
         if path == "flat_k8":
             check_k8(X, E, dev, res, stats, wall, flat_run, a.tasks,
                      a.machines)
             flat_run = None
+        if path == "traced":
+            check_traced(X, E, S, dev, res, stats, wall, scenario_run,
+                         a.tasks, a.machines)
+            scenario_run = None
         del res
+        torch.cuda.empty_cache()
         recheck_captured(K, KREF, captured[path], path)
     rows = []
     if "serve" in paths:
@@ -1506,6 +1712,10 @@ def main() -> int:
         profile_window(X, E, K, dev, path, width[path], a.tasks, a.machines)
     for path in sweeps:
         card_vs_cpu(X, E, dev, path)
+    if "traced" in sweeps:
+        for path in ("flat", "workflow"):
+            card_vs_cpu(X, E, dev, path, traced=True)
+        user_policy_on_card(X, E, K, P, dev)
     if "serve" in paths:
         serve_card_vs_cpu(dev)
     if sweeps:

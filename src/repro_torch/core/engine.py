@@ -52,6 +52,14 @@ in one masked scatter, bitwise the one-at-a-time drain;
 ``legacy_drain`` recomputes the machine-available vector every trip, as
 the reference's baseline loop does.
 
+``SimParams(trace=True)`` records every lifecycle transition and a
+fleet snapshot per event into ``SimState.trace`` (``core/trace.py``),
+and ``metrics=True`` a queue-depth sample per event plus the per-task
+histograms and SLO windows after the loop into ``SimState.metrics``
+(``core/metrics.py``), in the reference's order and with its masks; both
+read the state only, on the device, so the final state, the loop
+counters and the host reads are those of a run without them.
+
 Host reads: the drain runs in chunks of ``DRAIN_CHUNK`` trips and reads
 one pair of flags after each chunk (is any replica still draining, is
 any replica still live); the last read of an event also decides whether
@@ -69,8 +77,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import metrics as ME
 from repro_torch.core import schedulers as P
 from repro_torch.core import state as S
+from repro_torch.core import trace as T
 from repro_torch.core.eet import EETTable
 from repro_torch.core.workload import Workflow
 from repro_torch.core.reduce import fma, ordered_sum, signed_min
@@ -81,12 +91,16 @@ DRAIN_CHUNK = 2     # drain trips between host reads
 
 @dataclass(frozen=True)
 class SimParams:
-    """Static simulation parameters (the reference's subset this slice
-    runs)."""
+    """Static simulation parameters, the reference's but ``pallas``
+    (the port always runs its kernels)."""
     lcap: int = 4                  # machine-queue size
     qcap: int = 1 << 30            # batch-queue capacity
     cancel_infeasible: bool = True
     max_events: int | None = None
+    trace: bool = False            # record a trace.TraceBuffer
+    trace_capacity: int | None = None   # rows; default row_capacity_bound
+    metrics: bool = False          # histograms + SLO windows
+    metrics_spec: ME.MetricsSpec | None = None   # None = DEFAULT_SPEC
     drain_k: int = 1               # decisions a drain trip makes at once
     legacy_drain: bool = False     # recompute avail every drain trip
 
@@ -132,6 +146,11 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(1, dtype=torch.int32)
 
 
+def _ids(x: torch.Tensor) -> torch.Tensor:
+    """(W,) the column ids of an (R, W) tensor."""
+    return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+
 # --------------------------------------------------------------------------
 # Event phases (each masked by the (R,) ``act`` flag)
 # --------------------------------------------------------------------------
@@ -144,6 +163,9 @@ def _completions(st: S.SimState, p_active: torch.Tensor,
     rid = mach.running.clamp(0, n - 1).long()
     dur = torch.where(done_m, mach.busy_until - tasks.t_start.gather(1, rid),
                       0.0)
+    if st.trace is not None:
+        T.record(st.trace, st.time, T.EV_COMPLETE, mach.running,
+                 _ids(mach.running), done_m)
     tasks.status = _put_many(tasks.status, mach.running, S.COMPLETED, done_m)
     tasks.t_end = _put_many(tasks.t_end, mach.running,
                             torch.where(done_m, mach.busy_until, 0.0), done_m)
@@ -175,6 +197,10 @@ def _availability(st: S.SimState, dyn: S.MachineDynamics,
     mach.running = torch.where(hit, -1, running0)
     kill_hit = hit & dyn.kill
     req_hit = hit & ~dyn.kill
+    if st.trace is not None:
+        T.record(st.trace, st.time,
+                 torch.where(dyn.kill, T.EV_PREEMPT, T.EV_REQUEUE),
+                 running0, _ids(running0), hit)
     status = _put_many(tasks.status, running0,
                        torch.where(dyn.kill, S.PREEMPTED, S.IN_BATCH), hit)
     t_end = _put_many(tasks.t_end, running0, t.expand_as(running0),
@@ -191,6 +217,10 @@ def _availability(st: S.SimState, dyn: S.MachineDynamics,
     kill_of = dyn.kill.gather(1, m_of)
     kq = in_down_q & kill_of
     rq = in_down_q & ~kill_of
+    if st.trace is not None:
+        T.record(st.trace, st.time,
+                 torch.where(kill_of, T.EV_PREEMPT, T.EV_REQUEUE),
+                 _ids(machine), machine, in_down_q)
     tasks.status = torch.where(kq, S.PREEMPTED,
                                torch.where(rq, S.IN_BATCH, status))
     tasks.t_end = torch.where(kq, t, t_end)
@@ -208,10 +238,12 @@ def _release(st: S.SimState, deps: tuple, act: torch.Tensor,
     whose parents all terminated, some without completing, until a pass
     cancels nothing.  A pass that cancels nothing recomputes the same
     counts, so the passes run in masked chunks, one host read a chunk;
-    a chunk is twice the last, from one pass."""
+    a chunk is twice the last, from one pass.  The cascade's cancels are
+    traced once after the fixpoint, in task-id order."""
     parents, index = deps
     tasks = st.tasks
     on = act.clone()
+    before = tasks.status.clone() if st.trace is not None else None
     chunk = 1
     while True:
         for _ in range(chunk):
@@ -226,8 +258,11 @@ def _release(st: S.SimState, deps: tuple, act: torch.Tensor,
             stats.release_trips += 1
         stats.host_reads += 1
         if not bool(on.any()):
-            return
+            break
         chunk *= 2
+    if before is not None:
+        T.record(st.trace, st.time, T.EV_CANCEL, _ids(before), -1,
+                 (before == S.NOT_ARRIVED) & (tasks.status == S.CANCELLED))
 
 
 def _arrivals(st: S.SimState, qcap: int, act: torch.Tensor) -> None:
@@ -239,6 +274,9 @@ def _arrivals(st: S.SimState, qcap: int, act: torch.Tensor) -> None:
     pos = torch.cumsum(new.to(torch.int32), 1, dtype=torch.int32)
     admitted = new & (st.n_batch[:, None] + pos <= qcap)
     overflow = new & ~admitted
+    if st.trace is not None:
+        T.record(st.trace, st.time, T.EV_CANCEL, _ids(overflow), -1,
+                 overflow)
     status = torch.where(admitted, S.IN_BATCH, tasks.status)
     tasks.status = torch.where(overflow, S.CANCELLED, status)
     tasks.t_end = torch.where(overflow, tasks.arrival, tasks.t_end)
@@ -261,6 +299,9 @@ def _deadline_drops(st: S.SimState, p_active: torch.Tensor,
                       torch.ones_like(tasks.machine))
     st.mq_count = st.mq_count - left[:, :n_m]
     st.n_batch = st.n_batch - _count(miss_q & (tasks.status == S.IN_BATCH))
+    if st.trace is not None:
+        T.record(st.trace, st.time, T.EV_MISS_QUEUE, _ids(miss_q),
+                 tasks.machine, miss_q)
     status = torch.where(miss_q, S.MISSED_QUEUE, tasks.status)
     t_end = torch.where(miss_q, tasks.deadline, tasks.t_end)
 
@@ -269,6 +310,9 @@ def _deadline_drops(st: S.SimState, p_active: torch.Tensor,
     run_dl = tasks.deadline.gather(1, run_id)
     miss_r = act[:, None] & (mach.running >= 0) & (
         run_dl <= st.time[:, None])
+    if st.trace is not None:
+        T.record(st.trace, st.time, T.EV_MISS_RUNNING, mach.running,
+                 _ids(mach.running), miss_r)
     dur = torch.where(miss_r, run_dl - tasks.t_start.gather(1, run_id), 0.0)
     tasks.status = _put_many(status, mach.running, S.MISSED_RUNNING, miss_r)
     tasks.t_end = _put_many(t_end, mach.running,
@@ -350,8 +394,11 @@ def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
     The machine-available vector is computed once per event and carried
     through the trips with one exact add per mapped decision, as in the
     reference.  Returns whether any replica is still live after this
-    event (read together with the drain's last termination flag)."""
+    event (read together with the drain's last termination flag).  The
+    drain's cancels are traced after the loop, in task-id order, by a
+    status diff."""
     eet_nm = const[0]
+    before = st.tasks.status.clone() if st.trace is not None else None
     mach = st.machines
     n_m = mach.mtype.shape[1]
     bound = st.n_batch.clone()
@@ -398,6 +445,10 @@ def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
         still, more = torch.stack([draining.any(), live.any()]).tolist()
         stats.host_reads += 1
         if not still:
+            if before is not None:
+                T.record(st.trace, st.time, T.EV_CANCEL, _ids(before), -1,
+                         (before != S.CANCELLED)
+                         & (st.tasks.status == S.CANCELLED))
             return bool(more)
 
 
@@ -412,6 +463,8 @@ def _start_tasks(st: S.SimState, tb: S.StaticTables, act: torch.Tensor,
     start = act[:, None] & (mach.running < 0) & has
     if up is not None:
         start = start & up
+    if st.trace is not None:
+        T.record(st.trace, st.time, T.EV_START, pick, _ids(pick), start)
     dur = S.exec_time(tb, tasks, pick.clamp(0, n - 1).long(), mach.mtype,
                       mach.speed)
     t = st.time[:, None]
@@ -501,6 +554,14 @@ def run_sweep(tasks: S.TaskTable, mtype: torch.Tensor,
     if parents is not None and params.max_events is None:
         # every cascade echoes at most one extra event a cancelled task
         max_events += n
+    n_m = mtype.shape[-1]
+    if params.trace:
+        k = dynamics.down_start.shape[-1] if dynamics is not None else 0
+        cap = params.trace_capacity or T.row_capacity_bound(
+            n, params.lcap, n_m, k)
+        st.trace = T.make_buffer(r, cap, max_events, n_m, mtype.device)
+    if params.metrics:
+        st.metrics = ME.init(params.metrics_spec, r, mtype.device)
     if r == 0 or n == 0 or max_events <= 0:
         return st
     deps = None if parents is None else (parents, S.dep_index(parents))
@@ -528,9 +589,17 @@ def run_sweep(tasks: S.TaskTable, mtype: torch.Tensor,
         more = _drain(st, tables, plan, params, const, act, max_events,
                       stats, up)
         _start_tasks(st, tables, act, up)
+        if st.trace is not None:
+            T.snapshot(st.trace, st, act)
+        if st.metrics is not None:
+            ME.observe_event(st.metrics, st.tasks, act)
         st.n_events = st.n_events + act.to(torch.int32)
         act = (st.n_live > 0) & (st.n_events < max_events)
         stats.events += 1
+    if st.metrics is not None:
+        # per-task samples fold once the table is final: every task is
+        # terminal once, so the counts equal a fold at each terminal event
+        st.metrics = ME.fold_tasks(st.metrics, st.tasks)
     return st
 
 
@@ -559,13 +628,20 @@ def simulate(workload, eet: EETTable, power: np.ndarray,
              qcap: int | None = None, cancel_infeasible: bool = True,
              noise: np.ndarray | None = None,
              dynamics: S.MachineDynamics | None = None,
+             trace: bool = False, trace_capacity: int | None = None,
+             metrics: bool = False,
+             metrics_spec: ME.MetricsSpec | None = None,
              device="cuda") -> S.SimState:
     """One replica, named policy; returns a one-replica (leading axis 1)
     final state.  ``workload`` is a ``workload.Workload`` or a
     ``workload.Workflow``, whose parent table goes to the release phase
     and whose HEFT ranks come from the EET row means.  ``dynamics``
     (leading axis 1, on ``device``, e.g. from
-    ``workload.Scenario.dynamics``) makes the fleet dynamic."""
+    ``workload.Scenario.dynamics``) makes the fleet dynamic.
+    ``trace=True`` attaches a ``trace.TraceBuffer`` (``.trace``, the
+    input of ``core/viz.py``); ``metrics=True`` attaches
+    ``metrics.SimMetrics`` instruments (``.metrics``), with
+    ``metrics_spec`` overriding the bucket and window geometry."""
     dev = resolve_device(device)
     parents = rank = None
     if isinstance(workload, Workflow):
@@ -574,7 +650,9 @@ def simulate(workload, eet: EETTable, power: np.ndarray,
         rank = workload.ranks(eet_arr.mean(axis=1))
         workload = workload.workload
     params = SimParams(lcap=lcap, qcap=qcap or (1 << 30),
-                       cancel_infeasible=cancel_infeasible)
+                       cancel_infeasible=cancel_infeasible, trace=trace,
+                       trace_capacity=trace_capacity, metrics=metrics,
+                       metrics_spec=metrics_spec)
     tables = make_tables(eet, power, workload.n_tasks, noise=noise,
                          rank=rank, device=dev)
     mtype = torch.as_tensor(np.asarray(machine_types, np.int32)[None],

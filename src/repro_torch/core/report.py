@@ -1,10 +1,13 @@
-"""Simulation outputs for one replica of a batch: the report row.
+"""Simulation outputs for one replica of a batch: the report row, the
+event tables and the ASCII Gantt chart.
 
-The counterpart of ``repro.core.report`` for independent-task runs on a
-static or dynamic fleet: ``SimReport``, ``metrics``, ``heterogeneity``
-and ``summarize``.  Host-side numpy, as in the reference; the float sums
-over machines use ``reduce.ordered_sum`` so the rows equal the
-reference's.
+The counterpart of ``repro.core.report``: ``SimReport``, ``metrics``,
+``heterogeneity``, ``summarize`` (with the telemetry columns of
+``metrics.summary`` when the state carries metrics), ``trace_table``,
+``task_table``, ``ascii_gantt`` and ``format_report``; each function of
+a state reads replica ``replica`` of the batch.  Host-side numpy, as in
+the reference; the float sums over machines use ``reduce.ordered_sum``
+so the rows equal the reference's.
 """
 from __future__ import annotations
 
@@ -13,7 +16,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.core import energy as E
+from repro_torch.core import metrics as ME
 from repro_torch.core import state as S
+from repro_torch.core import trace as T
 from repro_torch.core.reduce import ordered_sum
 
 STATUS_NAMES = {
@@ -155,9 +160,77 @@ def heterogeneity(eet: np.ndarray, mtype: np.ndarray,
 def summarize(st: S.SimState, tables: S.StaticTables, replica: int = 0,
               dynamics: S.MachineDynamics | None = None) -> dict:
     """One flat dict for replica ``replica``: the ``SimReport`` row plus
-    the fleet heterogeneity score."""
+    the fleet heterogeneity score and, when the state carries metrics,
+    the p50/p95/p99 tails and SLO rates of ``metrics.summary``."""
     row = metrics(st, tables, replica, dynamics).row()
     row.update(heterogeneity(tables.eet[replica].cpu().numpy(),
                              st.machines.mtype[replica].cpu().numpy(),
                              st.machines.speed[replica].cpu().numpy()))
+    if st.metrics is not None:
+        row.update(ME.summary(st.metrics, replica=replica))
     return row
+
+
+def trace_table(trace_or_state, replica: int = 0) -> list[dict]:
+    """Transition log of replica ``replica`` of a traced run: one row per
+    lifecycle transition, in processing order."""
+    tb, _ = T.resolve(trace_or_state, replica)
+    ev = T.events(tb)
+    return [{
+        "time": float(t), "event": T.EVENT_NAMES[int(k)],
+        "task": int(task), "machine": int(m),
+    } for t, k, task, m in zip(ev["time"], ev["kind"], ev["task"],
+                               ev["machine"])]
+
+
+def _task_columns(st: S.SimState, replica: int) -> dict:
+    t = st.tasks
+    return {k: getattr(t, k)[replica].cpu().numpy() for k in
+            ("type_id", "arrival", "deadline", "status", "machine",
+             "t_start", "t_end")}
+
+
+def task_table(st: S.SimState, replica: int = 0) -> list[dict]:
+    """Per-task event log of replica ``replica`` (the GUI's task panels,
+    as rows)."""
+    c = _task_columns(st, replica)
+    return [{
+        "task": i,
+        "type": int(c["type_id"][i]),
+        "arrival": float(c["arrival"][i]),
+        "deadline": float(c["deadline"][i]),
+        "status": STATUS_NAMES[int(c["status"][i])],
+        "machine": int(c["machine"][i]),
+        "t_start": float(c["t_start"][i]),
+        "t_end": float(c["t_end"][i]),
+    } for i in range(c["arrival"].shape[0])]
+
+
+def ascii_gantt(st: S.SimState, width: int = 72, replica: int = 0) -> str:
+    """ASCII Gantt chart of replica ``replica``'s machine occupancy."""
+    span = float(E.makespan(st.take(slice(replica, replica + 1)))[0])
+    if span <= 0:
+        return "(empty schedule)"
+    n_m = int(st.machines.mtype.shape[1])
+    c = _task_columns(st, replica)
+    status, machine = c["status"], c["machine"]
+    t0, t1 = c["t_start"], c["t_end"]
+    lines = [f"gantt 0..{span:.2f}s  ('#'=completed, 'x'=dropped while "
+             f"running)"]
+    for m in range(n_m):
+        row = [" "] * width
+        for i in np.nonzero((machine == m) & (t0 >= 0))[0]:
+            a = int(t0[i] / span * (width - 1))
+            b = max(int(t1[i] / span * (width - 1)), a)
+            ch = "#" if status[i] == S.COMPLETED else "x"
+            for col in range(a, b + 1):
+                row[col] = ch
+        lines.append(f"m{m:02d} |{''.join(row)}|")
+    return "\n".join(lines)
+
+
+def format_report(rep: SimReport) -> str:
+    r = rep.row()
+    head = " | ".join(f"{k}={v}" for k, v in r.items())
+    util = " ".join(f"{u:.2f}" for u in rep.machine_util)
+    return f"{head}\n     machine_util: [{util}]"

@@ -26,6 +26,13 @@ policies construct them exactly with a K-step scan over (R, M) rows, and
 and keep the longest prefix that the sequential drain would also take.
 Each policy runs on its own replica rows, as in ``dispatch``: the
 reference's ``lax.switch`` over every branch is not paid.
+
+``register_policy(name, fn)`` plugs in a user policy (the paper's
+feature (ii)) with the next id.  It takes the immediate form ``(state,
+view) -> (task (R,), scores (R, M), mask (R, M))``, so that its machine
+pick joins the one ``masked_argmin`` launch of ``dispatch``, or returns
+a ``Decision``; ``dispatch_k`` speculates it in FIFO order and keeps a
+prefix only past cancels, as the reference does for user policies.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ INF = float("inf")
 POLICY_NAMES = ["fcfs", "rr", "met", "mct", "ee_met", "ee_mct", "minmin",
                 "maxmin", "edf_mct", "heft", "mlp", "linear"]
 POLICY_IDS = {name: i for i, name in enumerate(POLICY_NAMES)}
+BUILTIN = frozenset(POLICY_NAMES)
 NOT_PORTED = {
     "mlp": "learned policies are not ported yet (ROADMAP.md, queue A "
            "item 14)",
@@ -248,6 +256,29 @@ def maxmin(state, view: SchedView, rows: torch.Tensor | None,
 PAIR_POLICIES = {"minmin": minmin, "maxmin": maxmin}
 
 
+#: the ported policies by name, then the registered ones
+SCHEDULERS = {"rr": round_robin, **IMMEDIATE, **PAIR_POLICIES}
+
+
+def register_policy(name: str, fn) -> int:
+    """Plug in a user policy under the next policy id and return the id.
+    ``fn(state, view)`` returns ``(task (R,), scores (R, M), mask (R,
+    M))``, the task -1 where a replica has nothing to schedule and the
+    machine the first masked argmin of the scores, or a ``Decision``;
+    either way the cancellation wrapper applies.  Raises ``ValueError``
+    for a name already taken, built-ins included."""
+    if name in POLICY_IDS:
+        raise ValueError(f"policy {name!r} already registered")
+    SCHEDULERS[name] = fn
+    POLICY_NAMES.append(name)
+    POLICY_IDS[name] = len(POLICY_NAMES) - 1
+    return POLICY_IDS[name]
+
+
+def _user(name: str) -> bool:
+    return name not in BUILTIN
+
+
 def scaled_eet_table(state: S.SimState, tables: S.StaticTables
                      ) -> torch.Tensor:
     """(R, T, M) speed-scaled EET table for the fused Min-Min and
@@ -328,11 +359,15 @@ def dispatch(plan: Plan, state: S.SimState, tables: S.StaticTables,
     task = torch.full((r,), -1, dtype=torch.int32, device=view.head.device)
     machine = task.clone()
 
-    imm = [n for n in plan.names if n in IMMEDIATE]
+    imm, decided = [], []
+    for name in plan.names:
+        if name in IMMEDIATE or _user(name):
+            out = SCHEDULERS[name](state, view)
+            (decided if isinstance(out, Decision) else imm).append(
+                (name, out))
     if imm:
         t_sel = s_sel = m_sel = None
-        for name in imm:
-            t, s, mk = IMMEDIATE[name](state, view)
+        for name, (t, s, mk) in imm:
             if t_sel is None:
                 t_sel, s_sel, m_sel = t, s, mk
             else:
@@ -342,6 +377,10 @@ def dispatch(plan: Plan, state: S.SimState, tables: S.StaticTables,
                 m_sel = torch.where(on[:, None], mk, m_sel)
         dec = _head_decision(view, t_sel, _pick_machine(view, s_sel, m_sel))
         task, machine = dec.task, dec.machine
+    for name, dec in decided:
+        on = plan.is_policy[name]
+        task = torch.where(on, dec.task, task).to(torch.int32)
+        machine = torch.where(on, dec.machine, machine).to(torch.int32)
     if "rr" in plan.names:
         dec = round_robin(state, view)
         on = plan.is_policy["rr"]
@@ -380,7 +419,7 @@ _SCAN_RULES: dict[str, tuple[str, str]] = {
 # (FIFO, or each task's best frozen completion, ascending for Min-Min and
 # descending for Max-Min) and validate a sequentially consistent prefix.
 _SPEC_ORDER: dict[str, str] = {"rr": "head", "minmin": "minmin",
-                               "maxmin": "maxmin"}
+                               "maxmin": "maxmin"}   # user policies: head
 
 # Min-Min's choice provably survives the prefix corrections (all prefix
 # machines distinct: the winner's cell is untouched, every other
@@ -515,13 +554,14 @@ def _speculate_k(name: str, plan: Plan, state: S.SimState,
                  view: SchedView, lcap: int, cancel_infeasible: bool,
                  k: int, up: torch.Tensor | None):
     """One speculative K-trip of the replicas of ``name`` (``rr``,
-    ``minmin`` or ``maxmin``): speculate K tasks under the frozen view,
-    decide all K views (view j without the j earlier speculated tasks)
-    in one batched call, then keep the longest sequentially consistent
-    prefix: the dispatched task is the speculated one, its machine
-    differs from every earlier mapped machine, the cancel verdict holds
-    under the corrected avail and room, and for policies outside
-    ``_SPECULATIVE_SAFE`` every earlier candidate was a cancel.
+    ``minmin``, ``maxmin`` or a user policy): speculate K tasks under the
+    frozen view, decide all K views (view j without the j earlier
+    speculated tasks) in one batched call, then keep the longest
+    sequentially consistent prefix: the dispatched task is the
+    speculated one, its machine differs from every earlier mapped
+    machine, the cancel verdict holds under the corrected avail and
+    room, and for policies outside ``_SPECULATIVE_SAFE`` every earlier
+    candidate was a cancel.
     Candidate 0 is the true decision, so a trip applies at least one.
     Returns (task, machine, cancel), the prefix mask and the avail after
     the prefix, for the rows ``plan.rows[name]``."""
@@ -537,7 +577,7 @@ def _speculate_k(name: str, plan: Plan, state: S.SimState,
     r, n = in_batch.shape
     n_m = room.shape[1]
     dev = in_batch.device
-    kind = _SPEC_ORDER[name]
+    kind = _SPEC_ORDER.get(name, "head")
     if kind == "head":
         spec = _first_k(in_batch, k)
     else:
@@ -558,7 +598,9 @@ def _speculate_k(name: str, plan: Plan, state: S.SimState,
     in_batch_k = in_batch[:, None, :] & (pos[:, None, :n]
                                          >= steps[None, :, None])
     any_k = in_batch_k.any(2)                                   # (R_p, k)
-    if name == "rr":
+    if _user(name):
+        task, mach = (sel(x) for x in _user_k(name, state, view, k))
+    elif name == "rr":
         order = (torch.arange(n_m, device=dev)[None, :]
                  + sel(state.rr_ptr)[:, None]) % n_m
         pick = torch.argmax(room.gather(1, order.long()).to(torch.uint8), 1)
@@ -628,6 +670,38 @@ def _speculate_k(name: str, plan: Plan, state: S.SimState,
     addv = torch.where(moh_used, eet_t, 0.0).sum(1)
     avail_after = torch.where(moh_used.any(1), avail + addv, avail)
     return (task, mach, cancel), use, avail_after
+
+
+def _user_k(name: str, state: S.SimState, view: SchedView, k: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R, k) task and machine of user policy ``name`` in each of the k
+    views (view j: the queue without its j first tasks), for every
+    replica; the immediate form's machine picks of all k views in one
+    ``masked_argmin`` over (R k, 1, M) rows."""
+    r, n = view.in_batch.shape
+    n_m = view.room.shape[1]
+    first = _first_k(view.in_batch, k)
+    steps = torch.arange(k, dtype=torch.int32, device=first.device)
+    pos = torch.full((r, n + 1), k, dtype=torch.int32, device=first.device)
+    pos.scatter_(1, torch.where(first >= 0, first, n).long(),
+                 steps.expand(r, k))
+    outs = []
+    for j in range(k):
+        in_batch = view.in_batch & (pos[:, :n] >= j)
+        head = torch.where(in_batch.any(1), torch.argmax(
+            in_batch.to(torch.uint8), dim=1), -1).to(torch.int32)
+        outs.append(SCHEDULERS[name](state, view._replace(
+            in_batch=in_batch, head=head)))
+    if isinstance(outs[0], Decision):
+        return (torch.stack([o.task for o in outs], 1).to(torch.int32),
+                torch.stack([o.machine for o in outs], 1).to(torch.int32))
+    t = torch.stack([o[0] for o in outs], 1)
+    scores = torch.stack([o[1] for o in outs], 1).reshape(r * k, 1, n_m)
+    mask = torch.stack([o[2] for o in outs], 1).reshape(r * k, 1, n_m)
+    m, _ = K.masked_argmin(scores, mask)
+    ok = (t >= 0) & view.any_room[:, None]
+    return (torch.where(ok, t, -1).to(torch.int32),
+            torch.where(ok, m.view(r, k), -1).to(torch.int32))
 
 
 def dispatch_k(plan: Plan, state: S.SimState, tables: S.StaticTables,

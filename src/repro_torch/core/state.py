@@ -19,6 +19,10 @@ A workflow (DAG) run adds an (R, N, K) parent table, padded with -1:
 ``SimState.deps_left`` counts each task's parents that are not yet
 terminal, and :func:`dep_state` recomputes it, with the "some parent
 failed" flag, from the status column.
+
+With ``SimParams(trace=True)`` or ``metrics=True`` the state also
+carries a ``trace.TraceBuffer`` or ``metrics.SimMetrics`` (None
+otherwise); ``take`` slices them with the rest.
 """
 from __future__ import annotations
 
@@ -110,6 +114,8 @@ class SimState(_Batched):
     n_live: torch.Tensor       # i32 (R,)   non-terminal population
     deps_left: torch.Tensor | None = None   # i32 (R, N) parents not yet
     #                            terminal (workflow runs; None otherwise)
+    trace: object = None       # trace.TraceBuffer (SimParams(trace=True))
+    metrics: object = None     # metrics.SimMetrics (SimParams(metrics=True))
 
 
 @dataclasses.dataclass

@@ -4,13 +4,17 @@ A copy of the parts of ``repro.core.workload`` the port runs: the five
 arrival generators and their registry, the task-table conversion, the
 workflow (DAG) shapes (``Workflow``, ``upward_ranks``, the four
 generators and their registry), and the dynamic-fleet inputs
-(``DVFS_STATES``, ``failure_trace``, ``Scenario``, ``make_scenario``).
-For the same seed every array is bit-equal to the reference's; only
-``Scenario.dynamics`` differs, in returning the port's
+(``DVFS_STATES``, ``failure_trace``, ``Scenario``, ``make_scenario``)
+and the E2C trace files (``load_workload_csv``, ``save_workload_csv``).
+For the same seed, or the same file, every array is bit-equal to the
+reference's; only ``Scenario.dynamics`` differs, in returning the port's
 ``state.MachineDynamics``.
 """
 from __future__ import annotations
 
+import csv
+import io
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -510,3 +514,61 @@ def make_scenario(workload: Workload, n_machines: int, *,
         name=name or (f"fail={fail_rate:g}" + ("/spot" if spot else "")
                       + f"/dvfs={dvfs}"),
     )
+
+
+def load_workload_csv(path_or_text: str, *, n_task_types: int | None = None,
+                      mean_eet: np.ndarray | None = None,
+                      slack: float = 3.0) -> Workload:
+    """Load an E2C trace: ``task_id,task_type,arrival_time[,deadline]``
+    (a path, or the text itself).
+
+    task_type may be an integer id or a name (names are enumerated in
+    order of first appearance).  A missing deadline is synthesized as
+    ``arrival + slack * mean_eet[type]`` (ones without ``mean_eet``)."""
+    if os.path.exists(path_or_text):
+        with open(path_or_text) as f:
+            text = f.read()
+    else:
+        text = path_or_text
+    rows = [r for r in csv.reader(io.StringIO(text)) if r and any(
+        c.strip() for c in r)]
+    start = 1 if not _is_float(rows[0][2]) else 0   # optional header
+    names: dict[str, int] = {}
+    type_id, arrival, deadline = [], [], []
+    for r in rows[start:]:
+        t = r[1].strip()
+        if t.lstrip("-").isdigit():
+            tid = int(t)
+        else:
+            tid = names.setdefault(t, len(names))
+        type_id.append(tid)
+        arrival.append(float(r[2]))
+        deadline.append(float(r[3]) if len(r) > 3 and r[3].strip()
+                        else np.nan)
+    arrival = np.asarray(arrival, np.float32)
+    type_id = np.asarray(type_id, np.int32)
+    deadline = np.asarray(deadline, np.float32)
+    if np.any(np.isnan(deadline)):
+        nt = n_task_types or (int(type_id.max()) + 1)
+        me = mean_eet if mean_eet is not None else np.ones(nt, np.float32)
+        synth = arrival + slack * me[type_id]
+        deadline = np.where(np.isnan(deadline), synth, deadline)
+    return Workload(arrival, type_id, deadline)
+
+
+def save_workload_csv(w: Workload, path: str) -> None:
+    """Write ``w`` as an E2C trace with a header and six decimals."""
+    with open(path, "w", newline="") as f:
+        wr = csv.writer(f)
+        wr.writerow(["task_id", "task_type", "arrival_time", "deadline"])
+        for i in range(w.n_tasks):
+            wr.writerow([i, int(w.type_id[i]), f"{w.arrival[i]:.6f}",
+                         f"{w.deadline[i]:.6f}"])
+
+
+def _is_float(s: str) -> bool:
+    try:
+        float(s)
+        return True
+    except ValueError:
+        return False

@@ -23,11 +23,16 @@ per-replica random draws, the same summary columns.
   execute    :func:`run_experiment` — normalize + ``engine.run_sweep`` +
              :func:`summarize_replica` on the device.
 
-Streaming, tracing, metrics and learned-policy cells are later slices
-of the port; their axes do not exist here yet.
+``ExperimentSpec(trace=True)`` records every replica's trace
+(``ExperimentResult.traces``, the batched ``trace.TraceBuffer``), and
+``metrics=True`` its histograms and SLO windows, which add the tail
+columns ``resp/wait/slow/qdepth_p50/p95/p99`` to the summary, computed
+on the device.  Streaming and learned-policy cells are later slices of
+the port; their axes do not exist here yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -36,6 +41,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import energy as EN
 from repro_torch.core import engine as E
+from repro_torch.core import metrics as ME
 from repro_torch.core import schedulers as P
 from repro_torch.core import state as S
 from repro_torch.core.eet import synth_eet
@@ -54,7 +60,8 @@ def summarize_replica(st: S.SimState, tables: S.StaticTables,
                       dynamics: S.MachineDynamics | None = None) -> dict:
     """(R,) summary columns of every replica, on the device.  With
     ``dynamics`` the availability is the mean over machines and downtime
-    leaves the idle energy."""
+    leaves the idle energy; a state that carries metrics adds the tail
+    columns (:func:`_tail_columns`)."""
     status = st.tasks.status
     completed = (status == S.COMPLETED).sum(1, dtype=torch.int32)
     missed = ((status == S.MISSED_QUEUE) | (status == S.MISSED_RUNNING)
@@ -67,7 +74,7 @@ def summarize_replica(st: S.SimState, tables: S.StaticTables,
     n = status.shape[1]
     response = torch.where(status == S.COMPLETED,
                            st.tasks.t_end - st.tasks.arrival, 0.0)
-    return {
+    out = {
         "completed": completed, "missed": missed, "cancelled": cancelled,
         "preempted": preempted,
         "requeues": st.n_preempts.sum(1, dtype=torch.int32) - preempted,
@@ -84,6 +91,21 @@ def summarize_replica(st: S.SimState, tables: S.StaticTables,
         "mean_response": ordered_sum(response, 1)
         / torch.clamp(completed, min=1),
     }
+    if st.metrics is not None:
+        out.update(_tail_columns(st.metrics))
+    return out
+
+
+def _tail_columns(mt: ME.SimMetrics) -> dict:
+    """(R,) p50/p95/p99 columns of every histogram, on the device; keys
+    as ``metrics.summary``'s."""
+    out = {}
+    for key, col in (("response", "resp"), ("wait", "wait"),
+                     ("slowdown", "slow"), ("queue_depth", "qdepth")):
+        q = ME.quantiles(getattr(mt, key), mt.spec)
+        for j, p in enumerate(("p50", "p95", "p99")):
+            out[f"{col}_{p}"] = q[:, j]
+    return out
 
 
 @dataclass(frozen=True)
@@ -153,13 +175,16 @@ class PolicyAxis:
 class ExperimentSpec:
     """One experiment: each replica draws its own EET table, power
     table, workload, noise, fleet and, with a ``scenario`` axis, machine
-    dynamics; the grid cell of replica r follows the module docstring."""
+    dynamics; the grid cell of replica r follows the module docstring.
+    ``trace`` and ``metrics`` fold into the effective ``sim_params``."""
     n_replicas: int
     fleet: FleetAxis
     workload: WorkloadAxis
     scenario: ScenarioAxis | None = None
     policy: PolicyAxis = field(default_factory=PolicyAxis)
     sim: E.SimParams = field(default_factory=E.SimParams)
+    trace: bool = False
+    metrics: bool = False
     seed: int = 0
 
     def __post_init__(self):
@@ -170,6 +195,17 @@ class ExperimentSpec:
     @property
     def workflow(self) -> bool:
         return self.workload.shapes is not None
+
+    @property
+    def sim_params(self) -> E.SimParams:
+        """The effective engine parameters, ``trace`` and ``metrics``
+        folded in."""
+        sp = self.sim
+        if self.trace:
+            sp = dataclasses.replace(sp, trace=True)
+        if self.metrics:
+            sp = dataclasses.replace(sp, metrics=True)
+        return sp
 
 
 @dataclass
@@ -366,11 +402,13 @@ def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
 @dataclass
 class ExperimentResult:
     """Output of :func:`run_experiment`: the inputs, the (R,) summary
-    columns, and the final state."""
+    columns, the final state and, for a traced spec, its batched
+    ``trace.TraceBuffer``."""
     spec: ExperimentSpec
     replicas: Replicas
     metrics: dict
     state: S.SimState | None = None
+    traces: object = None
 
     def by_policy(self, keys: tuple[str, ...] = ("completion_rate",
                                                  "missed", "energy",
@@ -398,6 +436,7 @@ def run_experiment(spec: ExperimentSpec, *, device="cuda",
     dev = resolve_device(device)
     reps = replicas if replicas is not None else normalize(spec, dev)
     st = E.run_sweep(reps.tasks, reps.mtype, reps.tables, reps.policy_ids,
-                     spec.sim, stats, reps.dynamics, reps.parents)
+                     spec.sim_params, stats, reps.dynamics, reps.parents)
     return ExperimentResult(
-        spec, reps, summarize_replica(st, reps.tables, reps.dynamics), st)
+        spec, reps, summarize_replica(st, reps.tables, reps.dynamics), st,
+        st.trace)

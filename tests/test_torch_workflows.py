@@ -7,7 +7,7 @@ port's ``run_sweep(parents=)`` is bitwise the JAX one (Pallas off and
 on, interpret mode) for all ten policies on ``tests/test_workflows.py``'s
 instances, the failure + DVFS scenario, the cascade case and an empty
 parent table; the port's ``simulate_ref(parents=)`` equals the JAX
-oracle.  On the three instances where the JAX engine and its oracle
+oracle.  On the four instances where the JAX engine and its oracle
 disagree (ROADMAP.md, queue C) the port's engine equals the JAX engine
 and the port's oracle the JAX oracle.
 """
@@ -358,7 +358,7 @@ def test_simulate_ref_parents_equals_jax(policy):
 # `machine` (ROADMAP.md, queue C): tests/test_workflows.py's property test
 # under slack_jitter=0.3
 ORACLE_FAULTS = ((8205, "heft", 2.0), (8104, "heft", 2.0),
-                 (6683, "minmin", 3.0))
+                 (6683, "minmin", 3.0), (6887, "heft", 2.0))
 
 
 @pytest.mark.parametrize("seed,policy,slack", ORACLE_FAULTS)
