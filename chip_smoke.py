@@ -6,6 +6,7 @@
     python3 chip_smoke.py --replicas 512 --flat-replicas 512   # short
     python3 chip_smoke.py --paths workflow,flat_k8
     python3 chip_smoke.py --paths traced --traced-replicas 512   # short
+    python3 chip_smoke.py --paths stream --stream-replicas 512   # short
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
@@ -45,6 +46,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  to the completed and missed counts and the queue-depth
                  samples to the event count; one replica's HTML report
                  and telemetry dashboard written under ``build/``;
+       stream    ``run_experiment`` with ``WorkloadAxis(2048,
+                 streaming=256, stream_chunk=64)``: the flat spec's
+                 draws, 4096 replicas x 2048 tasks through a 256-slot
+                 window x 32 machines, ten policies; every replica
+                 retires every task with none stalled and none live,
+                 the outcome counts sum to the retired, every host read
+                 is a drain's (one a drain chunk) and the window engine
+                 synchronises with the host only at those reads
+                 (``torch.cuda.set_sync_debug_mode``), the path's own
+                 peak device memory (its normalized inputs counted,
+                 earlier paths' captured kernel inputs not) beside the
+                 flat path's;
        serve     ``ServingEngine(run_mode="real")``, ee_mct over 4
                  machines of 2 types, 8 Poisson requests of two apps:
                  qwen2-1.5b as published (28 layers) and deepseek-moe-16b
@@ -56,6 +69,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   5. card vs CPU: a 64 x 128 x 8 flat sweep, scenario sweep, workflow
      sweep (all four DAG shapes) and flat sweep at K = 8 on the card and
      on the CPU must give bitwise-equal final states and summaries; with
+     the stream path, the streaming flat spec at W = 32 (overflow) and
+     W = 128 = N (its window also bitwise the dense flat run's final
+     state), the streaming scenario spec at W = 32, ``simulate_stream``
+     of a chain and of a fork-join workflow above ``min_window`` and the
+     W = 32 flat spec traced with metrics, every window field, summary
+     column, trace row and count bitwise equal to the CPU run's; with
      the traced path, flat, scenario and workflow traced with metrics
      bitwise-equal trace rows, snapshots, counts and tail columns, and a
      registered user policy in a mixed-id sweep bitwise the CPU run, its
@@ -105,7 +124,11 @@ SCENARIO = dict(fail_rates=(0.0, 0.05, 0.1),
 WORKFLOW_SCENARIO = dict(fail_rates=(0.0, 0.05))
 SHAPES = ("chain", "layered")         # the workflow path at full width
 ALL_SHAPES = ("chain", "fork_join", "map_reduce", "layered")   # phase 5
-PATHS = ("flat", "scenario", "workflow", "flat_k8", "traced")  # sweeps
+PATHS = ("flat", "scenario", "workflow", "flat_k8", "traced",
+         "stream")                                              # sweeps
+STREAM_TASKS = 2048           # the stream path's tasks, 8 windows
+STREAM_WINDOW = 256           # its live-task window
+STREAM_CHUNK = 64             # its arrival chunk
 ALL_PATHS = PATHS + ("serve",)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -407,16 +430,60 @@ def capturing(K, at):
             setattr(K, name, fn)
 
 
+@contextlib.contextmanager
+def counting_syncs(ST, P):
+    """Within the block, ``ST.run_stream`` and ``P.Plan.make`` run under
+    ``torch.cuda.set_sync_debug_mode("warn")``; the yielded dict receives,
+    per call of each, the number of operations that synchronised the host
+    with the card.  ``run_stream``'s count leaves out those of the
+    ``Plan.make`` it calls (its one-off set-up: the policies present and
+    their rows)."""
+    import warnings
+    counts = {"run_stream": [], "Plan.make": []}
+    run_stream, make = ST.run_stream, P.Plan.__dict__["make"]
+
+    def counted(name, fn):
+        def wrapped(*args, **kw):
+            prev = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+            counts[name].append(sum("synchronizing" in str(w.message)
+                                    for w in seen))
+            return out
+        return wrapped
+
+    ST.run_stream = counted("run_stream", run_stream)
+    P.Plan.make = staticmethod(counted("Plan.make", P.Plan.make))
+    try:
+        yield counts
+    finally:
+        ST.run_stream = run_stream
+        P.Plan.make = make
+
+
 def make_spec(X, E, path, n_rep, n_tasks, n_mach, seed=0, max_events=None,
-              shapes=SHAPES, traced=None):
+              shapes=SHAPES, traced=None, window=STREAM_WINDOW,
+              chunk=STREAM_CHUNK, scenario=None):
     """The spec of a sweep path (``PATHS``); ``shapes`` are the workflow
     path's DAG shapes; ``traced`` turns trace and metrics on (default:
-    on the traced path only)."""
-    scenario = {"scenario": X.ScenarioAxis(**SCENARIO),
-                "traced": X.ScenarioAxis(**SCENARIO),
-                "workflow": X.ScenarioAxis(**WORKFLOW_SCENARIO)}.get(path)
+    on the traced path only); ``window`` and ``chunk`` size the stream
+    path's window, which runs the flat spec's draws (``scenario``: the
+    scenario spec's)."""
+    if scenario is None:
+        scenario = {"scenario": X.ScenarioAxis(**SCENARIO),
+                    "traced": X.ScenarioAxis(**SCENARIO),
+                    "workflow": X.ScenarioAxis(**WORKFLOW_SCENARIO)
+                    }.get(path)
     workload = X.WorkloadAxis(n_tasks, shapes=shapes
                               if path == "workflow" else None)
+    if path == "stream":
+        workload = X.WorkloadAxis(n_tasks, streaming=window,
+                                  stream_chunk=chunk)
     drain_k = 8 if path == "flat_k8" else 1
     traced = path == "traced" if traced is None else traced
     return X.ExperimentSpec(n_rep, X.FleetAxis(n_mach), workload,
@@ -450,13 +517,14 @@ def check_workflow(S, reps, st) -> tuple[int, int]:
     return cascade, waited
 
 
-def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
+def run_main(X, E, K, S, ST, P, dev, path, n_rep, n_tasks, n_mach):
     """Drive one main path through ``run_experiment``, the launch counts
     set to 0 just before and read just after; returns the result, the
-    launches, the inputs captured from the run, the loop counters and
-    the execute seconds."""
+    launches, the inputs captured from the run, the loop counters, the
+    execute seconds and the path's own peak device memory in GiB."""
     phase = f"4 {path}"
     spec = make_spec(X, E, path, n_rep, n_tasks, n_mach)
+    held = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     reps = X.normalize(spec, device=dev)
     torch.cuda.synchronize()
@@ -464,7 +532,8 @@ def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
         f"{n_mach} machines on the host: {time.perf_counter() - t0:.2f} s")
     stats = E.RunStats()
     torch.cuda.reset_peak_memory_stats()
-    with capturing(K, CAPTURE_AT) as captured:
+    with capturing(K, CAPTURE_AT) as captured, \
+            counting_syncs(ST, P) as syncs:
         K.reset_launches()
         t0 = time.perf_counter()
         res = X.run_experiment(spec, device=dev, replicas=reps, stats=stats)
@@ -479,7 +548,11 @@ def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
     log(phase, f"execute {wall:.3f} s (synchronised); event steps "
         f"{stats.events}, drain trips {stats.drain_trips}, release trips "
         f"{stats.release_trips}, host reads {stats.host_reads}; peak "
-        f"device memory {peak:.2f} GiB; {gpu_line()}")
+        f"device memory {peak:.2f} GiB, the path's own {peak - held:.2f} "
+        f"GiB (its normalized inputs counted) above the {held:.2f} GiB "
+        f"held before it (earlier paths' captured kernel inputs); "
+        f"{gpu_line()}")
+    peak -= held
     if path == "scenario":
         log(phase, f"preempted {int(res.metrics['preempted'].sum())} tasks,"
             f" requeued {int(res.metrics['requeues'].sum())} evictions; "
@@ -489,9 +562,9 @@ def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
     for name in K.NAMES:
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the {path} path")
-    st = res.state
-    status = st.tasks.status
-    if not bool((status >= S.COMPLETED).all()):
+    if path == "stream":
+        check_stream(E, res, stats, n_tasks, syncs)
+    elif not bool((res.state.tasks.status >= S.COMPLETED).all()):
         raise AssertionError(f"live tasks left at the end of the {path} "
                              "path")
     for key, col in res.metrics.items():
@@ -503,6 +576,7 @@ def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
         col = res.metrics[key]
         if not bool(((col >= 0) & (col <= 1)).all()):
             raise AssertionError(f"{key} outside [0, 1]")
+    st = res.state
     if path in ("scenario", "traced") and not int(st.n_preempts.sum()):
         raise AssertionError("the scenario path evicted no task")
     if path == "workflow":
@@ -516,7 +590,46 @@ def run_main(X, E, K, S, dev, path, n_rep, n_tasks, n_mach):
             raise AssertionError("the workflow path cancelled no task "
                                  "for a failed parent")
     log(phase, f"all {n_rep * n_tasks} tasks terminal; summaries finite")
-    return res, launches, captured, stats, wall
+    return res, launches, captured, stats, wall, peak
+
+
+def check_stream(E, res, stats, n_tasks, syncs) -> None:
+    """The stream path's invariants, on the card: every replica retired
+    every task (none stalled) and holds no live task, the outcome counts
+    sum to the retired, every host read was a drain's, and the window
+    engine synchronised with the host at those reads only (``syncs``, of
+    :func:`counting_syncs`)."""
+    ws, spec = res.window, res.spec
+    a = ws.agg
+    if not bool((a.retired == n_tasks).all()):
+        raise AssertionError(f"stream: {int((a.retired < n_tasks).sum())} "
+                             "replicas stalled")
+    if bool((ws.sim.n_live != 0).any()):
+        raise AssertionError("stream: live tasks left in a window")
+    total = a.completed + a.cancelled + a.missed_queue + a.missed_running \
+        + a.preempted
+    if not bool((total == a.retired).all()):
+        raise AssertionError("stream: outcome counts do not sum to the "
+                             "retired tasks")
+    drain_reads = stats.drain_trips // E.DRAIN_CHUNK
+    if stats.host_reads != drain_reads:
+        raise AssertionError(f"stream: {stats.host_reads} host reads, "
+                             f"{drain_reads} drain chunks")
+    if syncs["run_stream"] != [stats.host_reads]:
+        raise AssertionError(f"stream: run_stream synchronised "
+                             f"{syncs['run_stream']} times, "
+                             f"{stats.host_reads} host reads counted")
+    n_chunks = -(-n_tasks // spec.stream_chunk)
+    most = int(ws.sim.n_events.max())
+    log("4 stream", f"window {tuple(ws.slot_task.shape)} (W = "
+        f"{spec.workload.streaming}, {n_chunks} chunks of "
+        f"{spec.stream_chunk}); every replica retired {n_tasks} tasks, "
+        f"none stalled, none live; event steps {stats.events} (most events "
+        f"of a replica {most}; 2 N + chunks = {2 * n_tasks + n_chunks}), "
+        f"host reads {stats.host_reads}, one a drain chunk, and as many "
+        f"synchronising operations in run_stream ({syncs['run_stream'][0]}"
+        f", besides the {syncs['Plan.make'][0]} of its set-up, Plan.make); "
+        f"{gpu_line()}")
 
 
 def recheck_captured(K, KREF, captured, path) -> None:
@@ -566,6 +679,97 @@ def card_vs_cpu(X, E, dev, path, traced=None) -> None:
                  "snapshots, histogram and window counts and tail columns")
     log("5 card=cpu", f"64x128x8 {what}: every state field and summary "
         f"column{extra} bitwise equal to the CPU run")
+
+
+def window_fields(ws) -> dict:
+    """Every tensor of a final streaming window by dotted name, the trace
+    rows cut to the valid ones (the spare column takes dropped writes in
+    any order)."""
+    out = {}
+
+    def walk(obj, prefix):
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(v, torch.Tensor):
+                out[prefix + f.name] = v
+            elif dataclasses.is_dataclass(v):
+                walk(v, f"{prefix}{f.name}.")
+    walk(ws, "")
+    tb = ws.sim.trace
+    if tb is not None:
+        pos = torch.arange(tb.cap, device=tb.n_rows.device)
+        valid = pos[None, :] < tb.n_rows[:, None]
+        for f in ("ev_time", "ev_kind", "ev_task", "ev_machine"):
+            out[f"sim.trace.{f}"] = torch.where(valid,
+                                                getattr(tb, f)[:, :tb.cap], 0)
+    return out
+
+
+def stream_card_vs_cpu(X, E, dev) -> None:
+    """The stream path's card-vs-CPU cases at 64 x 128 x 8: the flat
+    spec at W = 32 and W = 128 = N (whose window is also the dense flat
+    run's final state on the card), the scenario spec at W = 32, a chain
+    and a fork-join workflow through ``simulate_stream``, and the W = 32
+    flat spec traced with metrics."""
+    from repro_torch.core import streaming as ST
+    from repro_torch.core import workload as W
+    from repro_torch.core.eet import synth_eet
+    phase = "5 card=cpu"
+    cases = [("flat W=32", dict(window=32, chunk=16)),
+             ("flat W=128", dict(window=128, chunk=32)),
+             ("scenario W=32", dict(window=32, chunk=16,
+                                    scenario=X.ScenarioAxis(**SCENARIO))),
+             ("flat W=32 traced", dict(window=32, chunk=16, traced=True))]
+    for what, kw in cases:
+        spec = make_spec(X, E, "stream", 64, 128, 8, seed=1, **kw)
+        on_card = X.run_experiment(spec, device=dev)
+        on_cpu = X.run_experiment(spec, device="cpu")
+        bitwise_equal(window_fields(on_card.window),
+                      window_fields(on_cpu.window),
+                      f"stream {what}: card != CPU")
+        bitwise_equal(on_card.metrics, on_cpu.metrics,
+                      f"stream {what}: card != CPU in the summary")
+        if not bool((on_cpu.window.agg.retired == 128).all()):
+            raise AssertionError(f"stream {what}: a replica stalled")
+        extra = ""
+        if kw["window"] == 128:
+            dense = X.run_experiment(make_spec(X, E, "flat", 64, 128, 8,
+                                               seed=1), device=dev).state
+            ws = on_card.window
+            if not torch.equal(ws.slot_task[0].cpu(), torch.arange(
+                    128, dtype=torch.int32)):
+                raise AssertionError("stream W=N: slots not in id order")
+            bitwise_equal({k: v for k, v in fields(ws.sim).items()
+                           if k != "deps_left"},
+                          fields(dense), "stream W=N != the dense run")
+            extra = "; the window bitwise the dense flat run's final state"
+        if spec.trace:
+            extra = (f"; {int(on_card.window.sim.trace.n_rows.sum())} trace"
+                     " rows, snapshots, counts and tail columns")
+        log(phase, f"64x128x8 streaming {what}: every window field and "
+            f"summary column bitwise equal to the CPU run{extra}")
+    eet = synth_eet(4, 4, inconsistency=0.3, seed=5)
+    me = eet.eet.mean(1)
+    power = np.array([[20, 100], [30, 150], [40, 200], [25, 120]],
+                     np.float32)
+    mtype = np.arange(8) % 4
+    for wf in (W.chain_workflow(128, 4, mean_eet=me, slack_jitter=0.4,
+                                seed=2),
+               W.fork_join_workflow(16, 6, 4, mean_eet=me, slack_jitter=0.4,
+                                    seed=2)):
+        window = max(32, ST.min_window(wf.parents) + 15)
+        runs = [ST.simulate_stream(wf, eet, power, mtype, "heft",
+                                   window=window, chunk=16, trace=True,
+                                   device=d) for d in (dev, "cpu")]
+        bitwise_equal(window_fields(runs[0].ws), window_fields(runs[1].ws),
+                      f"stream workflow N={wf.n_tasks}: card != CPU")
+        if runs[1].stalled or runs[0].summarize() != runs[1].summarize():
+            raise AssertionError(f"stream workflow N={wf.n_tasks}: stalled "
+                                 "or the report rows differ")
+        log(phase, f"simulate_stream of a {wf.n_tasks}-task workflow (in-"
+            f"degree up to {ST.min_window(wf.parents) - 1}) through W = "
+            f"{window}, heft, traced: every window field, trace row and "
+            "the report row bitwise equal to the CPU run")
 
 
 def smoke_mct(state, view):
@@ -1618,6 +1822,8 @@ def main() -> int:
                     help="replicas of the flat path at K = 8")
     ap.add_argument("--traced-replicas", type=int, default=4096,
                     help="replicas of the traced path")
+    ap.add_argument("--stream-replicas", type=int, default=4096,
+                    help="replicas of the stream path")
     ap.add_argument("--tasks", type=int, default=1024)
     ap.add_argument("--machines", type=int, default=32)
     ap.add_argument("--paths", default=",".join(ALL_PATHS),
@@ -1633,7 +1839,8 @@ def main() -> int:
     sweeps = [p for p in PATHS if p in paths]
     width = {"flat": a.flat_replicas, "scenario": a.replicas,
              "workflow": a.workflow_replicas, "flat_k8": a.k8_replicas,
-             "traced": a.traced_replicas}
+             "traced": a.traced_replicas, "stream": a.stream_replicas}
+    tasks = {p: STREAM_TASKS if p == "stream" else a.tasks for p in PATHS}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
@@ -1645,6 +1852,7 @@ def main() -> int:
     from repro_torch.core import engine as E
     from repro_torch.core import schedulers as P
     from repro_torch.core import state as S
+    from repro_torch.core import streaming as ST
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import grouped_matmul as GMM
@@ -1676,11 +1884,12 @@ def main() -> int:
 
     errs = check_kernels(K, KREF, dev)
     errs.update(check_model_kernels(mods, dev))
-    launches, captured = {}, {}
+    launches, captured, peaks = {}, {}, {}
     flat_run = scenario_run = None
     for path in sweeps:
-        res, launches[path], captured[path], stats, wall = run_main(
-            X, E, K, S, dev, path, width[path], a.tasks, a.machines)
+        res, launches[path], captured[path], stats, wall, peaks[path] = \
+            run_main(X, E, K, S, ST, P, dev, path, width[path], tasks[path],
+                     a.machines)
         if path == "flat" and "flat_k8" in sweeps \
                 and width["flat"] == width["flat_k8"]:
             flat_run = (fields(res.state), stats, wall)
@@ -1698,6 +1907,10 @@ def main() -> int:
         del res
         torch.cuda.empty_cache()
         recheck_captured(K, KREF, captured[path], path)
+    if "stream" in peaks:
+        log("4 stream", f"the path's own peak device memory "
+            f"{peaks['stream']:.2f} GiB, the flat path's "
+            f"{peaks.get('flat', float('nan')):.2f} GiB; {gpu_line()}")
     rows = []
     if "serve" in paths:
         apps, serve_launches, serve_captured = run_serve(mods, dev,
@@ -1709,9 +1922,13 @@ def main() -> int:
         del apps
         torch.cuda.empty_cache()
     for path in sweeps:
-        profile_window(X, E, K, dev, path, width[path], a.tasks, a.machines)
+        profile_window(X, E, K, dev, path, width[path], tasks[path],
+                       a.machines)
     for path in sweeps:
-        card_vs_cpu(X, E, dev, path)
+        if path == "stream":
+            stream_card_vs_cpu(X, E, dev)
+        else:
+            card_vs_cpu(X, E, dev, path)
     if "traced" in sweeps:
         for path in ("flat", "workflow"):
             card_vs_cpu(X, E, dev, path, traced=True)

@@ -55,16 +55,24 @@ def idle_energy(st: S.SimState, tables: S.StaticTables,
                 dynamics: S.MachineDynamics | None = None) -> torch.Tensor:
     """(R, M) idle-power energy per machine up to the makespan (down
     machines are powered off and draw nothing)."""
-    mach = st.machines
-    span = makespan(st)
+    return idle_energy_until(st.machines, tables.power, makespan(st),
+                             dynamics)
+
+
+def idle_energy_until(mach: S.MachineState, power: torch.Tensor,
+                      span: torch.Tensor,
+                      dynamics: S.MachineDynamics | None = None
+                      ) -> torch.Tensor:
+    """(R, M) idle-power energy of the machines up to ``span`` (R,), for
+    (R, Mt, 2) power tables; the streaming engine's span is its running
+    maximum of terminal times."""
     idle_t = span[:, None] - mach.active_time
     idle_t = torch.maximum(idle_t, torch.zeros_like(idle_t))
     if dynamics is not None:
         idle_t = idle_t - downtime(dynamics, span)
         idle_t = torch.maximum(idle_t, torch.zeros_like(idle_t))
     rows = torch.arange(mach.mtype.shape[0], device=idle_t.device)[:, None]
-    return tables.power[rows, mach.mtype.long(), 0] * mach.power_scale \
-        * idle_t
+    return power[rows, mach.mtype.long(), 0] * mach.power_scale * idle_t
 
 
 def active_energy(st: S.SimState) -> torch.Tensor:

@@ -387,16 +387,19 @@ def _apply_decisions_k(st: S.SimState, dec: P.Decision, use: torch.Tensor
 def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
            params: SimParams, const: tuple, act: torch.Tensor,
            max_events: int, stats: RunStats,
-           up: torch.Tensor | None = None) -> bool:
+           up: torch.Tensor | None = None,
+           live: torch.Tensor | None = None) -> bool:
     """Invoke every replica's scheduler until it returns a no-op or its
     batch queue (as counted at the start of the drain) is exhausted.
 
     The machine-available vector is computed once per event and carried
     through the trips with one exact add per mapped decision, as in the
     reference.  Returns whether any replica is still live after this
-    event (read together with the drain's last termination flag).  The
-    drain's cancels are traced after the loop, in task-id order, by a
-    status diff."""
+    event (read together with the drain's last termination flag);
+    ``live``, an (R,) flag the caller computed, replaces that test where
+    its loop has another condition (the streaming window's).  The drain's
+    cancels are traced after the loop, in task-id order, by a status
+    diff."""
     eet_nm = const[0]
     before = st.tasks.status.clone() if st.trace is not None else None
     mach = st.machines
@@ -441,8 +444,9 @@ def _drain(st: S.SimState, tb: S.StaticTables, plan: P.Plan,
                 first = dec.task
             draining = draining & (first >= 0) & (iters < bound)
             stats.drain_trips += 1
-        live = (st.n_live > 0) & (st.n_events + 1 < max_events)
-        still, more = torch.stack([draining.any(), live.any()]).tolist()
+        alive = (st.n_live > 0) & (st.n_events + 1 < max_events) \
+            if live is None else live
+        still, more = torch.stack([draining.any(), alive.any()]).tolist()
         stats.host_reads += 1
         if not still:
             if before is not None:

@@ -17,7 +17,8 @@ cast once to float32, so the port, the reference and the numpy twin
 
 ``quantiles`` (also ``quantiles_jnp``, the reference's name) is the
 device twin of :func:`hist_quantile`, batched over R: the tail columns
-of ``launch/experiment.py`` come from it without a host read.
+of ``launch/experiment.py`` (:func:`tail_columns`) come from it
+without a host read.
 :func:`percentile` is the exact host percentile behind the serving
 report's tails.
 """
@@ -214,6 +215,18 @@ def quantiles(counts: torch.Tensor, spec: MetricsSpec,
 
 
 quantiles_jnp = quantiles
+
+
+def tail_columns(mt: SimMetrics) -> dict:
+    """(R,) p50/p95/p99 columns of every histogram, on the device; keys
+    as :func:`summary`'s (the sweeps' tail columns)."""
+    out = {}
+    for key, col in (("response", "resp"), ("wait", "wait"),
+                     ("slowdown", "slow"), ("queue_depth", "qdepth")):
+        q = quantiles(getattr(mt, key), mt.spec)
+        for j, p in enumerate(("p50", "p95", "p99")):
+            out[f"{col}_{p}"] = q[:, j]
+    return out
 
 
 # ---------------------------------------------------------------------------

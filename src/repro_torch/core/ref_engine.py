@@ -1,10 +1,12 @@
 """Plain-Python event loop of the E2C semantics, for the serving engine.
 
 A numpy copy of ``repro/core/ref_engine.py``'s ``_Sim`` and
-``simulate_ref``, limited to what ``serving.ServingEngine`` and the
-workflow tests run: a static fleet and the ten heuristics, on
-independent tasks or a workflow (``parents`` and HEFT ``rank``), with no
-trace, metrics, streaming window or learned policy.  The float64 arithmetic and
+``simulate_ref``, limited to what ``serving.ServingEngine``, the
+workflow and the streaming tests run: a static fleet and the ten
+heuristics, on independent tasks or a workflow (``parents`` and HEFT
+``rank``), densely or through the streaming window (``window=W``: at
+most W tasks loaded and not retired, loaded in id order as slots
+retire), with no trace, metrics or learned policy.  The float64 arithmetic and
 every tie-break are the reference's, so for the same inputs every result
 is equal to the reference's, not close: a static fleet's speed and power
 multipliers are 1.0, whose division and product the copy leaves out as
@@ -53,6 +55,8 @@ class _Sim:
     cancel_infeasible: bool
     parents: np.ndarray | None = None        # (N, K) i32, -1 padded
     rank: np.ndarray | None = None           # (N,) HEFT upward ranks
+    window: int | None = None                # streaming window (None:
+    #                                          every task loaded)
 
     status: np.ndarray = field(init=False)
     machine: np.ndarray = field(init=False)
@@ -83,6 +87,14 @@ class _Sim:
         self.busy_until = np.zeros(m, np.float64)
         self.energy = np.zeros(m, np.float64)
         self.active_time = np.zeros(m, np.float64)
+        self.loaded = np.full(n, self.window is None, bool)
+        self.retired = np.zeros(n, bool)
+        self.children: dict[int, list[int]] = {}
+        if self.parents is not None:
+            for t in range(n):
+                for p in self.parents[t]:
+                    if p >= 0:
+                        self.children.setdefault(int(p), []).append(t)
 
     # ---- helpers ---------------------------------------------------------
     def exec_time(self, t: int, m: int) -> float:
@@ -111,6 +123,35 @@ class _Sim:
     def batch_queue(self) -> list[int]:
         return list(np.nonzero(self.status == S.IN_BATCH)[0])
 
+    # ---- streaming window (mirror of streaming._retire / _refill) ---------
+    def _retire_window(self):
+        """A slot retires when its task is terminal and, for a workflow,
+        every child is loaded and none is still NOT_ARRIVED."""
+        for t in range(len(self.arrival)):
+            if self.retired[t] or not self.loaded[t] \
+                    or self.status[t] < S.COMPLETED:
+                continue
+            kids = self.children.get(t, [])
+            if any(not self.loaded[c] for c in kids):
+                continue
+            if any(self.status[c] == S.NOT_ARRIVED for c in kids):
+                continue
+            self.retired[t] = True
+
+    def stream_load(self):
+        """Retire what may retire, then load pending tasks in id order
+        while the window has room (the loaded ids are a stream prefix)."""
+        if self.window is None:
+            return
+        self._retire_window()
+        occ = int((self.loaded & ~self.retired).sum())
+        for t in range(len(self.arrival)):
+            if occ >= self.window:
+                break
+            if not self.loaded[t]:
+                self.loaded[t] = True
+                occ += 1
+
     # ---- workflow ----------------------------------------------------------
     def _parents_of(self, t: int) -> list[int]:
         if self.parents is None:
@@ -136,7 +177,7 @@ class _Sim:
         while changed:
             changed = False
             for t in range(len(self.arrival)):
-                if self.status[t] != S.NOT_ARRIVED:
+                if self.status[t] != S.NOT_ARRIVED or not self.loaded[t]:
                     continue
                 if self.released(t) and self.dep_failed(t):
                     self.status[t] = S.CANCELLED
@@ -156,7 +197,7 @@ class _Sim:
                 self.running[m] = -1
 
     def arrivals(self):
-        new = np.nonzero((self.status == S.NOT_ARRIVED)
+        new = np.nonzero((self.status == S.NOT_ARRIVED) & self.loaded
                          & (self.arrival <= self.time))[0]
         new = [t for t in new if self.released(t)]
         n_in_batch = int((self.status == S.IN_BATCH).sum())
@@ -275,7 +316,8 @@ class _Sim:
     # ---- loop ------------------------------------------------------------
     def next_event(self) -> float:
         cands = []
-        waiting = np.nonzero(self.status == S.NOT_ARRIVED)[0]
+        waiting = np.nonzero((self.status == S.NOT_ARRIVED)
+                             & self.loaded)[0]
         if self.parents is None:
             na = self.arrival[waiting]
         else:
@@ -305,9 +347,12 @@ class _Sim:
                                 + (n if self.parents is not None else 0))
         n_events = 0
         while not np.all(self.status >= S.COMPLETED) and budget > 0:
+            self.stream_load()
             t = self.next_event()
             if not np.isfinite(t):
                 break
+            # a task loaded late may carry an arrival already past: clamp
+            # instead of running time backwards (a no-op when dense)
             self.time = max(t, self.time)
             self.completions()
             self.release()
@@ -326,10 +371,13 @@ class _Sim:
 def simulate_ref(arrival, type_id, deadline, eet, power, mtype, *,
                  policy="mct", lcap=4, qcap=1 << 30,
                  cancel_infeasible=True, noise=None,
-                 max_events=None, parents=None, rank=None) -> RefResult:
+                 max_events=None, parents=None, rank=None,
+                 window=None) -> RefResult:
     """One run of the reference loop on a static fleet; ``parents`` (N,
     K) and ``rank`` (N,) make it a workflow run (pass the float32 ranks
-    the engine gets, so that the ``heft`` orders agree)."""
+    the engine gets, so that the ``heft`` orders agree); ``window=W``
+    runs it through the streaming window, the oracle of
+    ``streaming.run_stream`` when N > W."""
     arrival = np.asarray(arrival, np.float64)
     if noise is None:
         noise = np.ones(len(arrival))
@@ -340,5 +388,6 @@ def simulate_ref(arrival, type_id, deadline, eet, power, mtype, *,
                policy, lcap, qcap, cancel_infeasible,
                parents=None if parents is None
                else np.asarray(parents, np.int32),
-               rank=None if rank is None else np.asarray(rank, np.float64))
+               rank=None if rank is None else np.asarray(rank, np.float64),
+               window=window)
     return sim.run(max_events)

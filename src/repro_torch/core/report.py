@@ -3,7 +3,8 @@ event tables and the ASCII Gantt chart.
 
 The counterpart of ``repro.core.report``: ``SimReport``, ``metrics``,
 ``heterogeneity``, ``summarize`` (with the telemetry columns of
-``metrics.summary`` when the state carries metrics), ``trace_table``,
+``metrics.summary`` when the state carries metrics), ``summarize_stream``
+(a streaming run's row), ``trace_table``,
 ``task_table``, ``ascii_gantt`` and ``format_report``; each function of
 a state reads replica ``replica`` of the batch.  Host-side numpy, as in
 the reference; the float sums over machines use ``reduce.ordered_sum``
@@ -168,6 +169,49 @@ def summarize(st: S.SimState, tables: S.StaticTables, replica: int = 0,
                              st.machines.speed[replica].cpu().numpy()))
     if st.metrics is not None:
         row.update(ME.summary(st.metrics, replica=replica))
+    return row
+
+
+def summarize_stream(result, replica: int = 0) -> dict:
+    """One flat dict for replica ``replica`` of a finished streaming run
+    (a ``streaming.StreamResult``): the keys of :func:`summarize` where
+    the metric exists, computed from the running aggregates, plus
+    ``retired``, ``stalled``, the ``missed_queue``/``missed_running``
+    split and ``mean_wait_s``; values unrounded, as the reference's."""
+    from repro_torch.core import streaming as ST
+    dev = ST.summarize_stream_replica(result.ws, result.n_tasks,
+                                      result.dynamics)
+    dev = {k: v[replica].item() for k, v in dev.items()}
+    a = result.ws.agg
+    span = max(dev["makespan"], 0.0)
+    row = {
+        "n_tasks": result.n_tasks,
+        "retired": int(a.retired[replica]),
+        "stalled": int(a.retired[replica]) < result.n_tasks,
+        "completed": int(dev["completed"]),
+        "cancelled": int(dev["cancelled"]),
+        "missed": int(dev["missed"]),
+        "missed_queue": int(a.missed_queue[replica]),
+        "missed_running": int(a.missed_running[replica]),
+        "preempted": int(dev["preempted"]),
+        "requeues": int(dev["requeues"]),
+        "completion_rate": dev["completion_rate"],
+        "availability": dev["availability"],
+        "makespan": dev["makespan"],
+        "energy_J": dev["energy"],
+        "active_energy_J": dev["active_energy"],
+        "idle_energy_J": dev["idle_energy"],
+        "energy_per_task_J": dev["energy"] / max(dev["completed"], 1),
+        "mean_response_s": dev["mean_response"],
+        "mean_wait_s": float(a.sum_wait[replica])
+        / max(int(a.n_started[replica]), 1),
+        "throughput": dev["completed"] / max(span, 1e-9),
+    }
+    row.update(heterogeneity(
+        np.asarray(result.eet), np.asarray(result.mtype),
+        result.ws.sim.machines.speed[replica].cpu().numpy()))
+    if result.sim_metrics is not None:
+        row.update(ME.summary(result.sim_metrics, replica=replica))
     return row
 
 

@@ -1,7 +1,9 @@
 """Workload generation: numpy arrival draws, handed to torch at the end.
 
 A copy of the parts of ``repro.core.workload`` the port runs: the five
-arrival generators and their registry, the task-table conversion, the
+arrival generators and their registry, the chunked views that the
+streaming engine consumes (``iter_workload_chunks``,
+``poisson_workload_chunks``), the task-table conversion, the
 workflow (DAG) shapes (``Workflow``, ``upward_ranks``, the four
 generators and their registry), and the dynamic-fleet inputs
 (``DVFS_STATES``, ``failure_trace``, ``Scenario``, ``make_scenario``)
@@ -217,6 +219,49 @@ def resolve_arrivals(names) -> tuple[str, ...]:
         raise ValueError(f"unknown arrival generators {unknown}; known: "
                          f"{sorted(ARRIVAL_GENERATORS)}")
     return names
+
+
+def iter_workload_chunks(w: Workload, chunk: int):
+    """Yield ``w`` as consecutive ``Workload`` slices of ``chunk`` tasks
+    (the tail may be short), in arrival order: the host-side view of the
+    arrival stream that ``streaming.make_stream`` packs into columns."""
+    chunk = int(chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    for i in range(0, w.n_tasks, chunk):
+        yield Workload(w.arrival[i:i + chunk], w.type_id[i:i + chunk],
+                       w.deadline[i:i + chunk])
+
+
+def poisson_workload_chunks(n_tasks: int, chunk: int, rate: float,
+                            n_task_types: int, *,
+                            mean_eet: np.ndarray | None = None,
+                            slack: float = 3.0, slack_jitter: float = 0.5,
+                            type_probs: np.ndarray | None = None,
+                            seed: int = 0):
+    """A Poisson workload generated chunk by chunk in O(chunk) memory.
+    Chunk ``i`` draws from ``default_rng([seed, i])`` with arrivals
+    continuing from the previous chunk's last one, so any prefix is
+    reproducible on its own; statistically :func:`poisson_workload`, but
+    not bitwise (another draw order)."""
+    chunk = int(chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if type_probs is None:
+        type_probs = np.full(n_task_types, 1.0 / n_task_types)
+    if mean_eet is None:
+        mean_eet = np.ones(n_task_types, np.float32)
+    t0 = 0.0
+    for ci, lo in enumerate(range(0, n_tasks, chunk)):
+        m = min(chunk, n_tasks - lo)
+        rng = np.random.default_rng([seed, ci])
+        gaps = rng.exponential(1.0 / rate, size=m)
+        arrival = (t0 + np.cumsum(gaps)).astype(np.float32)
+        t0 = float(arrival[-1])
+        type_id = rng.choice(n_task_types, size=m, p=type_probs)
+        jitter = rng.lognormal(0.0, slack_jitter, size=m)
+        deadline = arrival + slack * jitter * np.asarray(mean_eet)[type_id]
+        yield Workload(arrival, type_id, deadline.astype(np.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -27,8 +27,11 @@ per-replica random draws, the same summary columns.
 (``ExperimentResult.traces``, the batched ``trace.TraceBuffer``), and
 ``metrics=True`` its histograms and SLO windows, which add the tail
 columns ``resp/wait/slow/qdepth_p50/p95/p99`` to the summary, computed
-on the device.  Streaming and learned-policy cells are later slices of
-the port; their axes do not exist here yet.
+on the device.  ``WorkloadAxis(streaming=W)`` runs every replica
+through the bounded-memory window engine (``core/streaming.py``) with
+the same draws and the same summary columns, computed from the running
+aggregates (:func:`to_streams` packs the inputs).  Learned-policy cells
+are a later slice of the port; their axis does not exist here yet.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from repro_torch.core import engine as E
 from repro_torch.core import metrics as ME
 from repro_torch.core import schedulers as P
 from repro_torch.core import state as S
+from repro_torch.core import streaming as ST
 from repro_torch.core.eet import synth_eet
 from repro_torch.core.reduce import ordered_sum
 from repro_torch.core.workload import (ARRIVAL_GENERATORS,
@@ -53,7 +57,7 @@ from repro_torch.core.workload import (ARRIVAL_GENERATORS,
 
 __all__ = ["FleetAxis", "WorkloadAxis", "ScenarioAxis", "PolicyAxis",
            "ExperimentSpec", "Replicas", "ExperimentResult", "normalize",
-           "run_experiment", "summarize_replica"]
+           "run_experiment", "summarize_replica", "to_streams"]
 
 
 def summarize_replica(st: S.SimState, tables: S.StaticTables,
@@ -61,7 +65,7 @@ def summarize_replica(st: S.SimState, tables: S.StaticTables,
     """(R,) summary columns of every replica, on the device.  With
     ``dynamics`` the availability is the mean over machines and downtime
     leaves the idle energy; a state that carries metrics adds the tail
-    columns (:func:`_tail_columns`)."""
+    columns (``metrics.tail_columns``)."""
     status = st.tasks.status
     completed = (status == S.COMPLETED).sum(1, dtype=torch.int32)
     missed = ((status == S.MISSED_QUEUE) | (status == S.MISSED_RUNNING)
@@ -92,19 +96,7 @@ def summarize_replica(st: S.SimState, tables: S.StaticTables,
         / torch.clamp(completed, min=1),
     }
     if st.metrics is not None:
-        out.update(_tail_columns(st.metrics))
-    return out
-
-
-def _tail_columns(mt: ME.SimMetrics) -> dict:
-    """(R,) p50/p95/p99 columns of every histogram, on the device; keys
-    as ``metrics.summary``'s."""
-    out = {}
-    for key, col in (("response", "resp"), ("wait", "wait"),
-                     ("slowdown", "slow"), ("queue_depth", "qdepth")):
-        q = ME.quantiles(getattr(mt, key), mt.spec)
-        for j, p in enumerate(("p50", "p95", "p99")):
-            out[f"{col}_{p}"] = q[:, j]
+        out.update(ME.tail_columns(st.metrics))
     return out
 
 
@@ -122,12 +114,19 @@ class WorkloadAxis:
     ``workload.ARRIVAL_GENERATORS`` entries and makes the arrival process
     a grid axis (None = Poisson everywhere).  ``shapes`` names
     ``workload.WORKFLOW_GENERATORS`` entries and switches the experiment
-    to workflow mode; the two are mutually exclusive."""
+    to workflow mode; the two are mutually exclusive.  ``streaming=W``
+    runs every replica through the streaming engine with a W-slot window
+    (memory O(W) a replica instead of O(n_tasks)), ``stream_chunk`` sets
+    its chunk size (default ``min(n_tasks, W)``; results do not depend
+    on it); streaming composes with ``arrivals`` and a scenario axis,
+    not with ``shapes``."""
     n_tasks: int
     n_task_types: int = 4
     rate: float = 4.0
     arrivals: tuple[str, ...] | None = None
     shapes: tuple[str, ...] | None = None
+    streaming: int | None = None
+    stream_chunk: int | None = None
 
     def __post_init__(self):
         if self.arrivals is not None and self.shapes is not None:
@@ -139,6 +138,21 @@ class WorkloadAxis:
                                resolve_arrivals(self.arrivals))
         if self.shapes is not None:
             object.__setattr__(self, "shapes", resolve_shapes(self.shapes))
+        if self.streaming is not None:
+            if self.shapes is not None:
+                raise ValueError(
+                    "streaming does not compose with shapes (workflow "
+                    "cells pad parent tables across the grid); run DAGs "
+                    "through streaming.simulate_stream directly")
+            if self.streaming < 1:
+                raise ValueError(f"streaming window must be >= 1, got "
+                                 f"{self.streaming}")
+        if self.stream_chunk is not None:
+            if self.streaming is None:
+                raise ValueError("stream_chunk requires streaming=W")
+            if self.stream_chunk < 1:
+                raise ValueError(f"stream_chunk must be >= 1, got "
+                                 f"{self.stream_chunk}")
 
 
 @dataclass(frozen=True)
@@ -195,6 +209,28 @@ class ExperimentSpec:
     @property
     def workflow(self) -> bool:
         return self.workload.shapes is not None
+
+    @property
+    def streaming(self) -> bool:
+        return self.workload.streaming is not None
+
+    @property
+    def stream_params(self) -> ST.StreamParams:
+        """The effective streaming parameters (streaming specs); as in
+        the reference, ``sim.drain_k`` is not forwarded (the window
+        drains one decision a trip)."""
+        sp = self.sim_params
+        return ST.StreamParams(
+            window=self.workload.streaming, lcap=sp.lcap, qcap=sp.qcap,
+            cancel_infeasible=sp.cancel_infeasible,
+            max_events=sp.max_events, trace=sp.trace,
+            trace_capacity=sp.trace_capacity, metrics=sp.metrics,
+            metrics_spec=sp.metrics_spec)
+
+    @property
+    def stream_chunk(self) -> int:
+        wk = self.workload
+        return wk.stream_chunk or max(min(wk.n_tasks, wk.streaming), 1)
 
     @property
     def sim_params(self) -> E.SimParams:
@@ -399,16 +435,45 @@ def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
                     else torch.as_tensor(parents, device=dev))
 
 
+def to_streams(reps: Replicas, chunk: int) -> ST.TaskStream:
+    """The stacked (R, N) replica columns as (R, nc, C) stream columns
+    on their device (the batch form of ``streaming.make_stream``; noise
+    and rank ride in the stream, the tail chunk pads with ``gid = -1``
+    rows)."""
+    if reps.parents is not None:
+        raise ValueError("streaming replicas cannot carry parent tables")
+    r, n = reps.tasks.arrival.shape
+    chunk = int(chunk)
+    n_chunks = max(-(-n // chunk), 1)
+    total = n_chunks * chunk
+
+    def pad(x, fill):
+        out = torch.full((r, total), fill, dtype=x.dtype, device=x.device)
+        out[:, :n] = x
+        return out.view(r, n_chunks, chunk)
+
+    gid = torch.arange(n, dtype=torch.int32, device=reps.mtype.device)
+    return ST.TaskStream(
+        arrival=pad(reps.tasks.arrival, S.INF),
+        type_id=pad(reps.tasks.type_id, 0),
+        deadline=pad(reps.tasks.deadline, S.INF),
+        noise=pad(reps.tables.noise, 1.0),
+        rank=pad(reps.tables.rank, 0.0),
+        gid=pad(gid.expand(r, n), -1))
+
+
 @dataclass
 class ExperimentResult:
     """Output of :func:`run_experiment`: the inputs, the (R,) summary
-    columns, the final state and, for a traced spec, its batched
-    ``trace.TraceBuffer``."""
+    columns, the final state (a dense run's) or final window (a
+    streaming run's, ``streaming.WindowState``) and, for a traced spec,
+    its batched ``trace.TraceBuffer``."""
     spec: ExperimentSpec
     replicas: Replicas
     metrics: dict
     state: S.SimState | None = None
     traces: object = None
+    window: ST.WindowState | None = None
 
     def by_policy(self, keys: tuple[str, ...] = ("completion_rate",
                                                  "missed", "energy",
@@ -429,12 +494,22 @@ class ExperimentResult:
 def run_experiment(spec: ExperimentSpec, *, device="cuda",
                    replicas: Replicas | None = None,
                    stats: E.RunStats | None = None) -> ExperimentResult:
-    """normalize -> run every replica -> summarize, on ``device``.
-    ``replicas`` skips normalization (e.g. inputs made by
-    ``interop.replicas_from_numpy``); ``stats`` receives the engine's
-    loop counters."""
+    """normalize -> run every replica -> summarize, on ``device``; a
+    streaming spec runs ``streaming.run_stream`` and returns its final
+    window in ``.window``.  ``replicas`` skips normalization (e.g.
+    inputs made by ``interop.replicas_from_numpy``); ``stats`` receives
+    the engine's loop counters."""
     dev = resolve_device(device)
     reps = replicas if replicas is not None else normalize(spec, dev)
+    if spec.streaming:
+        stream = to_streams(reps, spec.stream_chunk)
+        ws = ST.run_stream(stream, reps.mtype, reps.tables.eet,
+                           reps.tables.power, reps.policy_ids,
+                           spec.stream_params, reps.dynamics, stats)
+        n = (stream.gid >= 0).sum((1, 2), dtype=torch.int32)
+        return ExperimentResult(
+            spec, reps, ST.summarize_stream_replica(ws, n, reps.dynamics),
+            traces=ws.sim.trace, window=ws)
     st = E.run_sweep(reps.tasks, reps.mtype, reps.tables, reps.policy_ids,
                      spec.sim_params, stats, reps.dynamics, reps.parents)
     return ExperimentResult(
