@@ -7,6 +7,8 @@
     python3 chip_smoke.py --paths workflow,flat_k8
     python3 chip_smoke.py --paths traced --traced-replicas 512   # short
     python3 chip_smoke.py --paths stream --stream-replicas 512   # short
+    python3 chip_smoke.py --paths flat,chunked --flat-replicas 512 \
+        --chunked-replicas 1280 --chunk 512                        # short
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
@@ -46,9 +48,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  to the completed and missed counts and the queue-depth
                  samples to the event count; one replica's HTML report
                  and telemetry dashboard written under ``build/``;
-       stream    ``run_experiment`` with ``WorkloadAxis(2048,
+       stream    ``run_experiment`` with ``WorkloadAxis(1024,
                  streaming=256, stream_chunk=64)``: the flat spec's
-                 draws, 4096 replicas x 2048 tasks through a 256-slot
+                 draws, 4096 replicas x 1024 tasks through a 256-slot
                  window x 32 machines, ten policies; every replica
                  retires every task with none stalled and none live,
                  the outcome counts sum to the retired, every host read
@@ -58,6 +60,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  peak device memory (its normalized inputs counted,
                  earlier paths' captured kernel inputs not) beside the
                  flat path's;
+       chunked   ``run_experiment(chunk=4096, keep_replicas=True)`` on the
+                 flat spec at 10240 replicas (chunks of 4096, 4096 and
+                 2048; ``launch/chunked.py``), telemetry on: the kept
+                 rows of the first chunk bitwise the flat path's
+                 summaries, ``aggregate_metrics`` of the kept columns on
+                 the card bitwise the run's ``SweepAgg``, 1024 replicas
+                 a policy, the path's own peak device memory at most
+                 1.25x the flat path's, and its host-synchronising
+                 operations only the engine's host reads (``Plan.make``'s
+                 set-up apart), one a chunk at retirement and the final
+                 read of the aggregate; ``ChunkedStats`` and the seconds
+                 of each chunk beside the flat path's execute seconds;
        serve     ``ServingEngine(run_mode="real")``, ee_mct over 4
                  machines of 2 types, 8 Poisson requests of two apps:
                  qwen2-1.5b as published (28 layers) and deepseek-moe-16b
@@ -78,7 +92,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the traced path, flat, scenario and workflow traced with metrics
      bitwise-equal trace rows, snapshots, counts and tail columns, and a
      registered user policy in a mixed-id sweep bitwise the CPU run, its
-     machine pick one ``masked_argmin`` launch a drain trip; the
+     machine pick one ``masked_argmin`` launch a drain trip; with the
+     chunked path, ``run_experiment(chunk=...)`` of the flat, scenario,
+     workflow (all four shapes; a chunk of 24 splits a cell of ten
+     paired policies) and streaming (W = 32) specs at 64 x 128 x 8 in
+     chunks of 24, and of docs/scaling.md's 3000-replica cell in chunks
+     of 1000, every ``SweepAgg`` field bitwise equal to the CPU's fold
+     of its whole run, whose columns the kept ones equal; the
      tiny configurations of both apps through the same
      ``ServingEngine`` on both, the card teacher-forced with the CPU's
      tokens, must agree on every logit to atol = rtol = 1e-4 and on the
@@ -93,7 +113,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      calls, no synchronisation) and the launch floor: an empty kernel at
      the kernel's grid, timed the same ways.
 After 4 a profiled window of each path (the sweeps' first 32 event
-steps; one request of each app) gives the device's busy and idle share.
+steps, the workflow path's first 8, the chunked path's at 2048 replicas
+in two chunks of 1024 with their normalization; one request of each app)
+gives the device's busy and idle share.
 The workflow path's fork-join and map-reduce shapes run only in phase 5:
 at 1024 tasks they pad every parent table to K = 1022 (17 GB at 4096
 replicas) and their ranks take an N x K host loop a cell.
@@ -125,10 +147,14 @@ WORKFLOW_SCENARIO = dict(fail_rates=(0.0, 0.05))
 SHAPES = ("chain", "layered")         # the workflow path at full width
 ALL_SHAPES = ("chain", "fork_join", "map_reduce", "layered")   # phase 5
 PATHS = ("flat", "scenario", "workflow", "flat_k8", "traced",
-         "stream")                                              # sweeps
-STREAM_TASKS = 2048           # the stream path's tasks, 8 windows
+         "stream", "chunked")                                   # sweeps
+STREAM_TASKS = 1024           # the stream path's tasks, 4 windows
 STREAM_WINDOW = 256           # its live-task window
 STREAM_CHUNK = 64             # its arrival chunk
+CHUNKED_PROFILE = (2048, 1024)   # the chunked profile's replicas, chunk
+# the workflow path's first 32 steps launch some 670000 device
+# activities, whose profiler records take 2.5 min to read: 8 steps
+WORKFLOW_PROFILE_STEPS = 8
 ALL_PATHS = PATHS + ("serve",)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -150,8 +176,12 @@ REPLACES = {
 CAPTURE_AT = (1, 40, 400, 4000)
 
 
+T0 = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """A line of the run's log, behind the seconds since the start."""
+    print(f"{time.perf_counter() - T0:7.1f} s [{phase}] {msg}", flush=True)
 
 
 def gpu_line() -> str:
@@ -431,16 +461,18 @@ def capturing(K, at):
 
 
 @contextlib.contextmanager
-def counting_syncs(ST, P):
-    """Within the block, ``ST.run_stream`` and ``P.Plan.make`` run under
-    ``torch.cuda.set_sync_debug_mode("warn")``; the yielded dict receives,
-    per call of each, the number of operations that synchronised the host
-    with the card.  ``run_stream``'s count leaves out those of the
-    ``Plan.make`` it calls (its one-off set-up: the policies present and
-    their rows)."""
+def counting_syncs(targets: dict):
+    """Within the block, each function of ``targets`` ({name: (owner,
+    attribute)}) runs under ``torch.cuda.set_sync_debug_mode("warn")``;
+    the yielded dict receives, per call of each, the number of operations
+    that synchronised the host with the card.  A call's count leaves out
+    those of the targets it calls (``run_stream``'s, those of its
+    ``Plan.make``: its one-off set-up, the policies present and their
+    rows)."""
     import warnings
-    counts = {"run_stream": [], "Plan.make": []}
-    run_stream, make = ST.run_stream, P.Plan.__dict__["make"]
+    counts = {name: [] for name in targets}
+    saved = {name: vars(owner)[attr]
+             for name, (owner, attr) in targets.items()}
 
     def counted(name, fn):
         def wrapped(*args, **kw):
@@ -457,13 +489,16 @@ def counting_syncs(ST, P):
             return out
         return wrapped
 
-    ST.run_stream = counted("run_stream", run_stream)
-    P.Plan.make = staticmethod(counted("Plan.make", P.Plan.make))
+    for name, (owner, attr) in targets.items():
+        fn = counted(name, getattr(owner, attr))
+        # a class's method stays callable on the class, already bound
+        setattr(owner, attr, staticmethod(fn)
+                if isinstance(owner, type) else fn)
     try:
         yield counts
     finally:
-        ST.run_stream = run_stream
-        P.Plan.make = make
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, saved[name])
 
 
 def make_spec(X, E, path, n_rep, n_tasks, n_mach, seed=0, max_events=None,
@@ -533,7 +568,8 @@ def run_main(X, E, K, S, ST, P, dev, path, n_rep, n_tasks, n_mach):
     stats = E.RunStats()
     torch.cuda.reset_peak_memory_stats()
     with capturing(K, CAPTURE_AT) as captured, \
-            counting_syncs(ST, P) as syncs:
+            counting_syncs({"run_stream": (ST, "run_stream"),
+                            "Plan.make": (P.Plan, "make")}) as syncs:
         K.reset_launches()
         t0 = time.perf_counter()
         res = X.run_experiment(spec, device=dev, replicas=reps, stats=stats)
@@ -630,6 +666,122 @@ def check_stream(E, res, stats, n_tasks, syncs) -> None:
         f"synchronising operations in run_stream ({syncs['run_stream'][0]}"
         f", besides the {syncs['Plan.make'][0]} of its set-up, Plan.make); "
         f"{gpu_line()}")
+
+
+def agg_equal(got, want, what: str) -> None:
+    """Raise unless two ``SweepAgg``s are bitwise equal in every field."""
+    if got.columns != want.columns or got.policies != want.policies \
+            or not np.array_equal(got.counts, want.counts):
+        raise AssertionError(f"{what}: columns, policies or counts differ")
+    for k in want.columns:
+        for part in ("a", "b", "hist", "vmin", "vmax"):
+            x, y = getattr(got, part)[k], getattr(want, part)[k]
+            if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                raise AssertionError(f"{what}: {k} {part} differs")
+
+
+def run_chunked(X, E, K, P, dev, n_rep, chunk, n_tasks, n_mach, flat):
+    """Drive the chunked path: the flat spec at ``n_rep`` replicas through
+    ``run_experiment(chunk=..., keep_replicas=True)`` with telemetry on,
+    the launch counts set to 0 just before and read just after and the
+    host-synchronising operations counted.  ``flat`` is the flat path's
+    (host summary columns, execute seconds, own peak GiB) or None.
+    Returns what :func:`run_main` returns."""
+    from repro_torch.core import telemetry as TL
+    from repro_torch.launch import chunked as CH
+    phase = "4 chunked"
+    spec = make_spec(X, E, "chunked", n_rep, n_tasks, n_mach)
+    held = torch.cuda.memory_allocated() / 2**30
+    stats = E.RunStats()
+    torch.cuda.reset_peak_memory_stats()
+    tlog = TL.enable(os.path.join(ROOT, "build", "telemetry"))
+    try:
+        with capturing(K, CAPTURE_AT) as captured, counting_syncs({
+                "run_experiment": (X, "run_experiment"),
+                "run_sweep": (E, "run_sweep"),
+                "Plan.make": (P.Plan, "make")}) as syncs:
+            K.reset_launches()
+            t0 = time.perf_counter()
+            res = X.run_experiment(spec, device=dev, chunk=chunk,
+                                   keep_replicas=True, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(K.launches)
+    finally:
+        TL.disable()
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held
+    cs, agg = res.chunked, res.agg
+    log(phase, f"{n_rep} replicas x {n_tasks} tasks x {n_mach} machines in "
+        f"{cs.n_chunks} chunks of {chunk}: execute {wall:.3f} s "
+        f"(synchronised); ChunkedStats normalize_s {cs.normalize_s:.3f}, "
+        f"dispatch_s {cs.dispatch_s:.3f}, sync_s {cs.sync_s:.3f}, "
+        f"overlap_s {cs.overlap_s:.3f}, overlap_frac "
+        f"{cs.overlap_frac:.4f}, wall_s {cs.wall_s:.3f}; event steps "
+        f"{stats.events}, drain trips {stats.drain_trips}, host reads "
+        f"{stats.host_reads}; {gpu_line()}")
+    spans = {(r["name"], r.get("chunk")): r for r in
+             TL.read_jsonl(tlog.path) if r["kind"] == "span"}
+    flat_wall = flat[1] if flat is not None else float("nan")
+    for c in range(cs.n_chunks):
+        norm = spans[("chunk_normalize", c)]
+        size = min(chunk, n_rep - c * chunk)
+        where = ("beside the previous chunk" if norm["overlapped"]
+                 else "before the first chunk")
+        log(phase, f"chunk {c} ({size} replicas): normalize "
+            f"{norm['dur_s']:.3f} s ({where}), "
+            f"dispatch {spans[('chunk_dispatch', c)]['dur_s']:.3f} s, sync "
+            f"{spans[('chunk_sync', c)]['dur_s']:.3f} s; the flat path's "
+            f"monolithic execute {flat_wall:.3f} s")
+    log(phase, f"kernel launches {json.dumps(launches)}")
+    for name in K.NAMES:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the chunked "
+                                 "path")
+    outside = syncs["run_experiment"][0]
+    engine, setup = sum(syncs["run_sweep"]), sum(syncs["Plan.make"])
+    log(phase, f"host-synchronising operations: {engine} in the engine "
+        f"({stats.host_reads} host reads), {setup} in Plan.make's set-up "
+        f"of the {cs.n_chunks} chunks, {outside} in the chunk loop (allowed: "
+        f"one a chunk at retirement and the aggregate's read, "
+        f"{cs.n_chunks + 1})")
+    if engine != stats.host_reads or outside > cs.n_chunks + 1:
+        raise AssertionError("chunked: the chunk loop synchronised where it "
+                             "may not")
+    kept = res.metrics
+    for key, col in kept.items():
+        if col.shape != (n_rep,) or not bool(torch.isfinite(
+                col.float()).all()):
+            raise AssertionError(f"chunked: kept column {key} is not "
+                                 f"finite (R,): {tuple(col.shape)}")
+    n_p = len(POLICIES)
+    if agg.count() != n_rep or any(
+            agg.count(pol) != len(range(i, n_rep, n_p))
+            for i, pol in enumerate(POLICIES)):
+        raise AssertionError(f"chunked: counts {agg.counts.tolist()}")
+    pids = torch.tensor([P.POLICY_IDS[POLICIES[r % n_p]]
+                         for r in range(n_rep)], dtype=torch.int32)
+    agg_equal(CH.aggregate_metrics({k: v.to(dev) for k, v in kept.items()},
+                                   pids, POLICIES), agg,
+              "chunked: one fold of the kept columns != the run's")
+    what = "flat path not run in this call"
+    if flat is not None:
+        rows = min(len(next(iter(flat[0].values()))), n_rep)
+        bitwise_equal({k: v[:rows] for k, v in kept.items()},
+                      {k: v[:rows] for k, v in flat[0].items()},
+                      "chunked: kept rows != the flat path's")
+        what = (f"rows 0-{rows - 1} bitwise the flat path's; own peak "
+                f"{peak:.2f} GiB against the flat path's {flat[2]:.2f} GiB "
+                f"({peak / flat[2]:.3f}x)")
+        if peak > 1.25 * flat[2]:
+            raise AssertionError("chunked: own peak above 1.25x the flat "
+                                 "path's")
+    log(phase, f"{agg.count()} replicas folded ({agg.count(POLICIES[0])} "
+        f"a policy), one fold of the kept columns on the card bitwise the "
+        f"run's SweepAgg; kept {what}; own peak {peak:.2f} GiB (its "
+        f"normalized inputs counted) above the {held:.2f} GiB held before "
+        f"it; makespan mean {agg.mean('makespan'):.4f}, p99 "
+        f"{agg.quantile('makespan', 99.0):.4f}; {gpu_line()}")
+    return res, launches, captured, stats, wall, peak
 
 
 def recheck_captured(K, KREF, captured, path) -> None:
@@ -770,6 +922,46 @@ def stream_card_vs_cpu(X, E, dev) -> None:
             f"degree up to {ST.min_window(wf.parents) - 1}) through W = "
             f"{window}, heft, traced: every window field, trace row and "
             "the report row bitwise equal to the CPU run")
+
+
+def chunked_card_vs_cpu(X, E, dev) -> None:
+    """The chunked path's card-vs-CPU cases: the flat, scenario, workflow
+    (all four shapes; a chunk of 24 splits a cell of the ten paired
+    policies, and every chunk pads to the grid's widest in-degree) and
+    streaming (W = 32) specs at 64 x 128 x 8 in chunks of 24, and
+    docs/scaling.md's cell of 3000 replicas in chunks of 1000; the CPU
+    runs each spec whole and folds it with ``aggregate_metrics``."""
+    from repro_torch.launch import chunked as CH
+    phase = "5 card=cpu"
+    cases = [
+        ("flat", make_spec(X, E, "flat", 64, 128, 8, seed=1), 24),
+        ("scenario", make_spec(X, E, "scenario", 64, 128, 8, seed=1), 24),
+        ("workflow", make_spec(X, E, "workflow", 64, 128, 8, seed=1,
+                               shapes=ALL_SHAPES), 24),
+        ("streaming W=32", make_spec(X, E, "stream", 64, 128, 8, seed=1,
+                                     window=32, chunk=16), 24),
+        ("docs/scaling.md cell", X.ExperimentSpec(
+            3000, X.FleetAxis(4), X.WorkloadAxis(16),
+            policy=X.PolicyAxis(("mct", "ee_mct"))), 1000)]
+    for what, spec, chunk in cases:
+        on_card = X.run_experiment(spec, device=dev, chunk=chunk,
+                                   keep_replicas=True)
+        # the CPU side folds its monolithic run's columns at once: the
+        # aggregate does not depend on the chunking, and the kept columns
+        # are held against the same run
+        on_cpu = X.run_experiment(spec, device="cpu")
+        agg_equal(on_card.agg, CH.aggregate_metrics(
+            on_cpu.metrics, on_cpu.replicas.policy_ids,
+            spec.policy.policies), f"chunked {what}: card != CPU")
+        bitwise_equal(on_card.metrics, on_cpu.metrics,
+                      f"chunked {what}: kept columns != the CPU run's")
+        extra = ""
+        if spec.workflow:
+            extra = (f"; parent tables padded to the grid's K = "
+                     f"{X._workflow_kmax(spec)}")
+        log(phase, f"chunked {what}, {spec.n_replicas} replicas in chunks "
+            f"of {chunk}: every SweepAgg field and kept column bitwise "
+            f"equal to the CPU run's{extra}")
 
 
 def smoke_mct(state, view):
@@ -1192,21 +1384,28 @@ def timings(K, KREF, build, launches, captured, errs, paths=PATHS) -> list:
     return rows
 
 
-def profile_window(X, E, K, dev, path, n_rep, n_tasks, n_mach, steps=32):
+def profile_window(X, E, K, dev, path, n_rep, n_tasks, n_mach, steps=32,
+                   chunk=None):
     """A main path's first ``steps`` event steps at full width, under
     the profiler: wall time, device busy/idle share, top device kernels,
-    and the port's kernels' device time per call in that window."""
+    and the port's kernels' device time per call in that window.  With
+    ``chunk`` the run is chunked and the window holds each chunk's first
+    steps and the drawing of the chunks."""
     from torch.profiler import ProfilerActivity, profile
     phase = f"4 {path} profile"
     spec = make_spec(X, E, path, n_rep, n_tasks, n_mach, max_events=steps)
-    reps = X.normalize(spec, device=dev)
-    X.run_experiment(spec, device=dev, replicas=reps)      # warm-up
+    if chunk is None:
+        reps = X.normalize(spec, device=dev)
+        X.run_experiment(spec, device=dev, replicas=reps)      # warm-up
+        kw = {"replicas": reps}
+    else:
+        kw = {"chunk": chunk}
     torch.cuda.synchronize()
     saved = dict(K.launches)
     stats = E.RunStats()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        X.run_experiment(spec, device=dev, replicas=reps, stats=stats)
+        X.run_experiment(spec, device=dev, stats=stats, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     K.launches.update(saved)
@@ -1824,6 +2023,10 @@ def main() -> int:
                     help="replicas of the traced path")
     ap.add_argument("--stream-replicas", type=int, default=4096,
                     help="replicas of the stream path")
+    ap.add_argument("--chunked-replicas", type=int, default=10240,
+                    help="replicas of the chunked path")
+    ap.add_argument("--chunk", type=int, default=4096,
+                    help="the chunked path's chunk size")
     ap.add_argument("--tasks", type=int, default=1024)
     ap.add_argument("--machines", type=int, default=32)
     ap.add_argument("--paths", default=",".join(ALL_PATHS),
@@ -1839,7 +2042,8 @@ def main() -> int:
     sweeps = [p for p in PATHS if p in paths]
     width = {"flat": a.flat_replicas, "scenario": a.replicas,
              "workflow": a.workflow_replicas, "flat_k8": a.k8_replicas,
-             "traced": a.traced_replicas, "stream": a.stream_replicas}
+             "traced": a.traced_replicas, "stream": a.stream_replicas,
+             "chunked": a.chunked_replicas}
     tasks = {p: STREAM_TASKS if p == "stream" else a.tasks for p in PATHS}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -1885,11 +2089,19 @@ def main() -> int:
     errs = check_kernels(K, KREF, dev)
     errs.update(check_model_kernels(mods, dev))
     launches, captured, peaks = {}, {}, {}
-    flat_run = scenario_run = None
+    flat_run = scenario_run = flat_cols = None
     for path in sweeps:
-        res, launches[path], captured[path], stats, wall, peaks[path] = \
-            run_main(X, E, K, S, ST, P, dev, path, width[path], tasks[path],
-                     a.machines)
+        if path == "chunked":
+            res, launches[path], captured[path], stats, wall, peaks[path] \
+                = run_chunked(X, E, K, P, dev, width[path], a.chunk,
+                              a.tasks, a.machines, flat_cols)
+        else:
+            res, launches[path], captured[path], stats, wall, \
+                peaks[path] = run_main(X, E, K, S, ST, P, dev, path,
+                                       width[path], tasks[path], a.machines)
+        if path == "flat" and "chunked" in sweeps:
+            flat_cols = ({k: v.cpu() for k, v in res.metrics.items()},
+                         wall, peaks[path])
         if path == "flat" and "flat_k8" in sweeps \
                 and width["flat"] == width["flat_k8"]:
             flat_run = (fields(res.state), stats, wall)
@@ -1922,11 +2134,19 @@ def main() -> int:
         del apps
         torch.cuda.empty_cache()
     for path in sweeps:
-        profile_window(X, E, K, dev, path, width[path], tasks[path],
-                       a.machines)
+        if path == "chunked":
+            n_rep, chunk = CHUNKED_PROFILE
+            profile_window(X, E, K, dev, path, n_rep, a.tasks, a.machines,
+                           chunk=chunk)
+        else:
+            profile_window(X, E, K, dev, path, width[path], tasks[path],
+                           a.machines, steps=WORKFLOW_PROFILE_STEPS
+                           if path == "workflow" else 32)
     for path in sweeps:
         if path == "stream":
             stream_card_vs_cpu(X, E, dev)
+        elif path == "chunked":
+            chunked_card_vs_cpu(X, E, dev)
         else:
             card_vs_cpu(X, E, dev, path)
     if "traced" in sweeps:

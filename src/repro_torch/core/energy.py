@@ -37,8 +37,8 @@ def downtime(dyn: S.MachineDynamics, span: torch.Tensor) -> torch.Tensor:
 def availability(dyn: S.MachineDynamics, span: torch.Tensor
                  ) -> torch.Tensor:
     """(R, M) fraction of [0, span] each machine was available."""
-    span = torch.maximum(span, torch.tensor(1e-9, dtype=span.dtype,
-                                            device=span.device))
+    span = torch.maximum(span, torch.full((), 1e-9, dtype=span.dtype,
+                                          device=span.device))
     return 1.0 - downtime(dyn, span) / span[:, None]
 
 
@@ -46,8 +46,8 @@ def mean_availability(avail: torch.Tensor) -> torch.Tensor:
     """(R,) mean of (R, M) availabilities over the machines; the
     reference's compiler divides by the constant M as a multiplication
     by its float32 reciprocal."""
-    recip = torch.tensor(1.0 / avail.shape[1], dtype=torch.float32,
-                         device=avail.device)
+    recip = torch.full((), 1.0 / avail.shape[1], dtype=torch.float32,
+                       device=avail.device)
     return ordered_sum(avail, 1) * recip
 
 

@@ -105,10 +105,14 @@ def init(spec: MetricsSpec | None, n_replicas: int, device) -> SimMetrics:
 # ---------------------------------------------------------------------------
 # Accumulation on the device
 # ---------------------------------------------------------------------------
-def _bucket(spec: MetricsSpec, x: torch.Tensor) -> torch.Tensor:
+def _bucket(spec: MetricsSpec, x: torch.Tensor,
+            edges: torch.Tensor | None = None) -> torch.Tensor:
     """Counts-bin index of float32 samples ``x``: 0 underflow, B + 1
-    overflow."""
-    edges = torch.as_tensor(bucket_edges(spec), device=x.device)
+    overflow.  ``edges``: the spec's ``bucket_edges`` already on
+    ``x``'s device (copied here otherwise, a copy that waits for the
+    host)."""
+    if edges is None:
+        edges = torch.as_tensor(bucket_edges(spec), device=x.device)
     return torch.searchsorted(edges, x.to(torch.float32).contiguous(),
                               right=True).to(torch.int32)
 

@@ -21,7 +21,11 @@ per-replica random draws, the same summary columns.
              the reference's order, and hand the stacked tables to
              torch; parent tables pad to the grid's widest in-degree.
   execute    :func:`run_experiment` — normalize + ``engine.run_sweep`` +
-             :func:`summarize_replica` on the device.
+             :func:`summarize_replica` on the device; with ``chunk=C``
+             the grid runs C replicas at a time through
+             ``launch/chunked.py`` into an exact on-device aggregate
+             (:func:`normalize_chunk` draws any range of the grid
+             alone, bitwise the slice of :func:`normalize`).
 
 ``ExperimentSpec(trace=True)`` records every replica's trace
 (``ExperimentResult.traces``, the batched ``trace.TraceBuffer``), and
@@ -48,6 +52,7 @@ from repro_torch.core import metrics as ME
 from repro_torch.core import schedulers as P
 from repro_torch.core import state as S
 from repro_torch.core import streaming as ST
+from repro_torch.core import telemetry as TL
 from repro_torch.core.eet import synth_eet
 from repro_torch.core.reduce import ordered_sum
 from repro_torch.core.workload import (ARRIVAL_GENERATORS,
@@ -57,7 +62,8 @@ from repro_torch.core.workload import (ARRIVAL_GENERATORS,
 
 __all__ = ["FleetAxis", "WorkloadAxis", "ScenarioAxis", "PolicyAxis",
            "ExperimentSpec", "Replicas", "ExperimentResult", "normalize",
-           "run_experiment", "summarize_replica", "to_streams"]
+           "normalize_chunk", "run_experiment", "summarize_replica",
+           "to_streams"]
 
 
 def summarize_replica(st: S.SimState, tables: S.StaticTables,
@@ -86,8 +92,8 @@ def summarize_replica(st: S.SimState, tables: S.StaticTables,
         else EN.mean_availability(EN.availability(dynamics, makespan)),
         # the reference's compiler turns the division by the constant n
         # into a multiplication by its float32 reciprocal
-        "completion_rate": completed * torch.tensor(
-            1.0 / n, dtype=torch.float32, device=status.device),
+        "completion_rate": completed * torch.full(
+            (), 1.0 / n, dtype=torch.float32, device=status.device),
         "makespan": makespan,
         "energy": active_e + idle_e,
         "active_energy": active_e,
@@ -243,6 +249,10 @@ class ExperimentSpec:
             sp = dataclasses.replace(sp, metrics=True)
         return sp
 
+    def with_(self, **kw) -> "ExperimentSpec":
+        """Functional update: ``spec.with_(seed=1, trace=True)``."""
+        return dataclasses.replace(self, **kw)
+
 
 @dataclass
 class Replicas:
@@ -257,6 +267,16 @@ class Replicas:
     @property
     def n_replicas(self) -> int:
         return int(self.policy_ids.shape[0])
+
+    def legacy(self) -> tuple:
+        """The positional tuple the pre-spec constructors gave: (tasks, mtype,
+        tables, policy_ids), then dynamics and parents where present."""
+        out = (self.tasks, self.mtype, self.tables, self.policy_ids)
+        if self.dynamics is not None:
+            out = out + (self.dynamics,)
+        if self.parents is not None:
+            out = out + (self.parents,)
+        return out
 
 
 def _draw_power(rng, n_machine_types: int) -> np.ndarray:
@@ -354,62 +374,73 @@ def _draw_workflow_cell(spec: ExperimentSpec, cell: int) -> dict:
                 kill=scen.kill)
 
 
+def _materialize_flat(spec: ExperimentSpec, lo: int = 0,
+                      hi: int | None = None) -> list[dict]:
+    """Flat and scenario modes: the draws of replicas ``[lo, hi)``, each
+    from its own substream, so a range draws the same whether alone or
+    as part of the whole grid."""
+    hi = spec.n_replicas if hi is None else hi
+    return [_draw_flat_replica(spec, r) for r in range(lo, hi)]
+
+
+_KMAX_CACHE: dict[ExperimentSpec, int] = {}
+
+
 def _workflow_kmax(spec: ExperimentSpec) -> int:
     """The grid-wide widest DAG in-degree, the parent tables' pad width:
     a generate-and-discard pass over the cells (DAG generation is
-    deterministic per cell), equal to the width :func:`normalize`
-    pads to."""
-    wk, fl = spec.workload, spec.fleet
-    n_p = len(spec.policy.policies)
-    km = 0
-    for cell in range(-(-spec.n_replicas // n_p)):
-        eet = synth_eet(wk.n_task_types, fl.n_machine_types,
-                        inconsistency=0.3, seed=spec.seed + cell)
-        gen = WORKFLOW_GENERATORS[wk.shapes[cell % len(wk.shapes)]]
-        wf = gen(wk.n_tasks, wk.n_task_types, eet.eet.mean(1),
-                 spec.seed + 7919 * cell)
-        km = max(km, wf.parents.shape[1])
+    deterministic per cell), equal to the width :func:`normalize` pads
+    to, cached per spec so that every chunk of a grid pads alike."""
+    km = _KMAX_CACHE.get(spec)
+    if km is None:
+        wk, fl = spec.workload, spec.fleet
+        n_p = len(spec.policy.policies)
+        km = 0
+        for cell in range(-(-spec.n_replicas // n_p)):
+            eet = synth_eet(wk.n_task_types, fl.n_machine_types,
+                            inconsistency=0.3, seed=spec.seed + cell)
+            gen = WORKFLOW_GENERATORS[wk.shapes[cell % len(wk.shapes)]]
+            wf = gen(wk.n_tasks, wk.n_task_types, eet.eet.mean(1),
+                     spec.seed + 7919 * cell)
+            km = max(km, wf.parents.shape[1])
+        _KMAX_CACHE[spec] = km
     return km
 
 
-def _materialize_workflow(spec: ExperimentSpec
+def _materialize_workflow(spec: ExperimentSpec, lo: int = 0,
+                          hi: int | None = None, k_max: int | None = None
                           ) -> tuple[list[dict], np.ndarray]:
-    """Workflow mode: one draw per cell, shared by its paired replicas
-    (policy ``r % n_p``), and the (R, N, K) parent tables padded with -1
-    to the grid's widest in-degree."""
+    """Workflow mode, replicas ``[lo, hi)``: one draw per cell, shared by
+    its paired replicas (policy ``r % n_p``), and the (hi - lo, N, K)
+    parent tables padded with -1 to ``k_max`` (default: the range's
+    widest in-degree; chunks pass the grid's, :func:`_workflow_kmax`)."""
+    hi = spec.n_replicas if hi is None else hi
     policies = spec.policy.policies
     n_p = len(policies)
     draws = []
-    for cell in range(-(-spec.n_replicas // n_p)):
+    for cell in range(lo // n_p, -(-hi // n_p)):
         d = _draw_workflow_cell(spec, cell)
-        for p in range(min(n_p, spec.n_replicas - cell * n_p)):
-            draws.append({**d, "policy": P.POLICY_IDS[policies[p]]})
-    k_max = max(d["parents"].shape[1] for d in draws)
-    parents = np.full((spec.n_replicas, spec.workload.n_tasks, k_max), -1,
-                      np.int32)
+        for p in range(n_p):
+            if lo <= cell * n_p + p < hi:
+                draws.append({**d, "policy": P.POLICY_IDS[policies[p]]})
+    if k_max is None:
+        k_max = max(d["parents"].shape[1] for d in draws)
+    parents = np.full((hi - lo, spec.workload.n_tasks, k_max), -1, np.int32)
     for i, d in enumerate(draws):
         parents[i, :, :d["parents"].shape[1]] = d["parents"]
     return draws, parents
 
 
-def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
-    """Draw every replica of the spec on the host and stack the inputs
-    on ``device`` (numpy draws, bit-equal to the reference's)."""
-    dev = resolve_device(device)
-    parents = None
-    if spec.workflow:
-        draws, parents = _materialize_workflow(spec)
-    else:
-        draws = [_draw_flat_replica(spec, r)
-                 for r in range(spec.n_replicas)]
-
+def _stack(spec: ExperimentSpec, draws: list[dict],
+           parents: np.ndarray | None, dev: torch.device) -> Replicas:
+    """The per-replica draws stacked into one :class:`Replicas` on
+    ``dev``."""
     def stack(key, dtype):
         return np.stack([d[key] for d in draws]).astype(dtype)
 
     def put(key, dtype, tdtype):
         return torch.as_tensor(stack(key, dtype), dtype=tdtype, device=dev)
 
-    n = spec.workload.n_tasks
     tasks = task_table(stack("arrival", np.float32),
                        stack("type_id", np.int32),
                        stack("deadline", np.float32), device=dev)
@@ -418,8 +449,8 @@ def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
         power=put("power", np.float32, torch.float32),
         noise=put("noise", np.float32, torch.float32),
         rank=put("rank", np.float32, torch.float32) if spec.workflow
-        else torch.zeros((spec.n_replicas, n), dtype=torch.float32,
-                         device=dev))
+        else torch.zeros((len(draws), spec.workload.n_tasks),
+                         dtype=torch.float32, device=dev))
     dyn = None
     if spec.scenario is not None or spec.workflow:
         dyn = S.MachineDynamics(
@@ -433,6 +464,32 @@ def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
                                     dtype=torch.int32, device=dev), dyn,
                     None if parents is None
                     else torch.as_tensor(parents, device=dev))
+
+
+def normalize(spec: ExperimentSpec, device="cuda") -> Replicas:
+    """Draw every replica of the spec on the host and stack the inputs
+    on ``device`` (numpy draws, bit-equal to the reference's)."""
+    dev = resolve_device(device)
+    if spec.workflow:
+        return _stack(spec, *_materialize_workflow(spec), dev)
+    return _stack(spec, _materialize_flat(spec), None, dev)
+
+
+def normalize_chunk(spec: ExperimentSpec, lo: int, hi: int,
+                    device="cuda") -> Replicas:
+    """Replicas ``[lo, hi)`` of the grid on ``device``, bitwise the slice
+    of :func:`normalize`'s output without drawing the other replicas
+    (per-replica and per-cell substreams make the grid random-access);
+    workflow chunks pad their parent tables to the grid's widest
+    in-degree."""
+    if not (0 <= lo < hi <= spec.n_replicas):
+        raise ValueError(f"chunk [{lo}, {hi}) outside grid "
+                         f"[0, {spec.n_replicas})")
+    dev = resolve_device(device)
+    if spec.workflow:
+        return _stack(spec, *_materialize_workflow(
+            spec, lo, hi, k_max=_workflow_kmax(spec)), dev)
+    return _stack(spec, _materialize_flat(spec, lo, hi), None, dev)
 
 
 def to_streams(reps: Replicas, chunk: int) -> ST.TaskStream:
@@ -467,18 +524,27 @@ class ExperimentResult:
     """Output of :func:`run_experiment`: the inputs, the (R,) summary
     columns, the final state (a dense run's) or final window (a
     streaming run's, ``streaming.WindowState``) and, for a traced spec,
-    its batched ``trace.TraceBuffer``."""
+    its batched ``trace.TraceBuffer``.  A chunked run (``chunk=``)
+    carries the exact aggregate ``launch/chunked.SweepAgg`` in ``agg``
+    and its timing in ``chunked``; its ``replicas`` are None
+    and its ``metrics`` None, or with ``keep_replicas=True`` the
+    per-replica columns on the host."""
     spec: ExperimentSpec
-    replicas: Replicas
-    metrics: dict
+    replicas: Replicas | None
+    metrics: dict | None
     state: S.SimState | None = None
     traces: object = None
     window: ST.WindowState | None = None
+    agg: object = None
+    chunked: object = None
 
     def by_policy(self, keys: tuple[str, ...] = ("completion_rate",
                                                  "missed", "energy",
                                                  "makespan")) -> list[dict]:
-        """Per-policy mean rows (host-side), in spec policy order."""
+        """Per-policy mean rows (host-side), in spec policy order; a
+        chunked result reads them off its aggregate (exact means)."""
+        if self.agg is not None:
+            return self.agg.by_policy(keys)
         pids = self.replicas.policy_ids.cpu().numpy()
         cols = {k: self.metrics[k].cpu().numpy() for k in keys}
         rows = []
@@ -491,16 +557,11 @@ class ExperimentResult:
         return rows
 
 
-def run_experiment(spec: ExperimentSpec, *, device="cuda",
-                   replicas: Replicas | None = None,
-                   stats: E.RunStats | None = None) -> ExperimentResult:
-    """normalize -> run every replica -> summarize, on ``device``; a
-    streaming spec runs ``streaming.run_stream`` and returns its final
-    window in ``.window``.  ``replicas`` skips normalization (e.g.
-    inputs made by ``interop.replicas_from_numpy``); ``stats`` receives
-    the engine's loop counters."""
-    dev = resolve_device(device)
-    reps = replicas if replicas is not None else normalize(spec, dev)
+def _execute(spec: ExperimentSpec, reps: Replicas,
+            stats: E.RunStats | None = None) -> ExperimentResult:
+    """Run the replicas ``reps`` of ``spec`` on their device and
+    summarize them there: ``engine.run_sweep``, or for a streaming spec
+    ``streaming.run_stream`` on :func:`to_streams` of them."""
     if spec.streaming:
         stream = to_streams(reps, spec.stream_chunk)
         ws = ST.run_stream(stream, reps.mtype, reps.tables.eet,
@@ -515,3 +576,51 @@ def run_experiment(spec: ExperimentSpec, *, device="cuda",
     return ExperimentResult(
         spec, reps, summarize_replica(st, reps.tables, reps.dynamics), st,
         st.trace)
+
+
+def run_experiment(spec: ExperimentSpec, *, device="cuda",
+                   replicas: Replicas | None = None,
+                   stats: E.RunStats | None = None,
+                   chunk: int | None = None, keep_replicas: bool = False,
+                   on_chunk=None) -> ExperimentResult:
+    """normalize -> run every replica -> summarize, on ``device``; a
+    streaming spec runs ``streaming.run_stream`` and returns its final
+    window in ``.window``.  ``replicas`` skips normalization (e.g.
+    inputs made by ``interop.replicas_from_numpy``); ``stats`` receives
+    the engine's loop counters.
+
+    ``chunk=C`` runs the grid C replicas at a time
+    (``launch/chunked.run_chunked_experiment``): each chunk's summaries
+    fold on the device into an exact ``SweepAgg`` (``.agg``), bitwise
+    the same for every chunk size, with chunk c + 1 normalized on the
+    host while chunk c runs, so device memory stays O(C);
+    ``keep_replicas`` also gathers the per-replica columns on the host,
+    and ``on_chunk(c)`` is called as chunk c retires.
+
+    With telemetry on (``core/telemetry.py``) the run writes the spans
+    ``experiment``, ``normalize`` and ``execute`` (a chunked run:
+    ``chunk_normalize``, ``chunk_dispatch`` and ``chunk_sync`` a
+    chunk).  The reference's ``compile`` span and ``cache`` event have
+    no counterpart: the port has no executable cache yet (ROADMAP.md,
+    queue A item 2)."""
+    if chunk is not None:
+        from repro_torch.launch.chunked import run_chunked_experiment
+        return run_chunked_experiment(
+            spec, chunk, device=device, replicas=replicas,
+            keep_replicas=keep_replicas, on_chunk=on_chunk, stats=stats)
+    if keep_replicas or on_chunk is not None:
+        raise ValueError("keep_replicas/on_chunk only apply with chunk=")
+    dev = resolve_device(device)
+    with TL.span("experiment", streaming=spec.streaming,
+                 policies=spec.policy.policies, backend=dev.type) as xsp:
+        with TL.span("normalize") as nsp:
+            reps = replicas if replicas is not None else normalize(spec, dev)
+            nsp["n_replicas"] = reps.n_replicas
+            nsp["reused"] = replicas is not None
+        xsp["n_replicas"] = reps.n_replicas
+        with TL.span("execute"):
+            res = _execute(spec, reps, stats)
+            # only wait for the card when someone is timing the stage
+            if TL.current() is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+    return res
