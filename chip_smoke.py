@@ -9,6 +9,9 @@
     python3 chip_smoke.py --paths stream --stream-replicas 512   # short
     python3 chip_smoke.py --paths flat,chunked --flat-replicas 512 \
         --chunked-replicas 1280 --chunk 512                        # short
+    python3 chip_smoke.py --paths learned,es
+    python3 chip_smoke.py --paths learned,es --learned-replicas 512 \
+        --es-generations 2                                         # short
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
@@ -61,17 +64,33 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  earlier paths' captured kernel inputs not) beside the
                  flat path's;
        chunked   ``run_experiment(chunk=4096, keep_replicas=True)`` on the
-                 flat spec at 10240 replicas (chunks of 4096, 4096 and
-                 2048; ``launch/chunked.py``), telemetry on: the kept
+                 flat spec at 8192 replicas (two chunks of 4096;
+                 ``launch/chunked.py``), telemetry on: the kept
                  rows of the first chunk bitwise the flat path's
                  summaries, ``aggregate_metrics`` of the kept columns on
-                 the card bitwise the run's ``SweepAgg``, 1024 replicas
-                 a policy, the path's own peak device memory at most
-                 1.25x the flat path's, and its host-synchronising
-                 operations only the engine's host reads (``Plan.make``'s
-                 set-up apart), one a chunk at retirement and the final
+                 the card bitwise the run's ``SweepAgg``, the replicas
+                 of each policy counted, the path's own peak device
+                 memory at most 1.25x the flat path's, and its
+                 host-synchronising operations only the engine's host
+                 reads (``Plan.make``'s set-up apart), one a chunk at
+                 retirement and the final
                  read of the aggregate; ``ChunkedStats`` and the seconds
                  of each chunk beside the flat path's execute seconds;
+       learned   ``run_experiment`` of the flat spec's draws at 4096
+                 replicas x 1024 tasks x 32 machines with
+                 ``PolicyAxis(("mlp", "linear"))`` and shared random
+                 weights (``neural.init_params(0)``, drawn on the host):
+                 the path launches ``masked_argmin``, ``fused_start_pick``
+                 and ``fused_event_bounds``, and every task ends terminal;
+       es        ``learn.train_and_evaluate`` at the repo's documented
+                 full configuration (24 training and 24 held-out
+                 scenarios, 64 tasks x 8 machines, pop 12), generations
+                 cut to ``--es-generations`` for the time limit: each
+                 generation one ``run_sweep`` of 25 x 24 = 600 replicas
+                 (counted), then the scoreboard of the nine baselines and
+                 the trained ``mlp`` (ten rows) in one sweep, written
+                 with its SVG under ``build/learned/``; every scheduling
+                 kernel launched (the baselines run Min-Min and Max-Min);
        serve     ``ServingEngine(run_mode="real")``, ee_mct over 4
                  machines of 2 types, 8 Poisson requests of two apps:
                  qwen2-1.5b as published (28 layers) and deepseek-moe-16b
@@ -98,7 +117,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      paired policies) and streaming (W = 32) specs at 64 x 128 x 8 in
      chunks of 24, and of docs/scaling.md's 3000-replica cell in chunks
      of 1000, every ``SweepAgg`` field bitwise equal to the CPU's fold
-     of its whole run, whose columns the kept ones equal; the
+     of its whole run, whose columns the kept ones equal; with the
+     learned path, ``mlp`` and ``linear`` with random weights on the flat
+     spec, at K = 8 (against the CPU's K = 1 run, which the port's K-way
+     drain equals), on the scenario spec and through the streaming
+     (W = 32) and chunked (chunks of 24) paths, every state field,
+     window field, summary column and ``SweepAgg`` field bitwise equal to
+     the CPU run's, and the warm starts on the card: ``mlp`` with
+     ``ee_mlp_params`` bitwise ``ee_mct``, with ``mct_mlp_params``
+     bitwise ``mct``; with the es path, one ES generation at pop 3 on a
+     4-scenario grid, its fitness values, theta' and best theta bitwise
+     equal to the CPU's; the
      tiny configurations of both apps through the same
      ``ServingEngine`` on both, the card teacher-forced with the CPU's
      tokens, must agree on every logit to atol = rtol = 1e-4 and on the
@@ -114,7 +143,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the kernel's grid, timed the same ways.
 After 4 a profiled window of each path (the sweeps' first 32 event
 steps, the workflow path's first 8, the chunked path's at 2048 replicas
-in two chunks of 1024 with their normalization; one request of each app)
+in two chunks of 1024 with their normalization, the learned path's
+first 32; one request of each app)
 gives the device's busy and idle share.
 The workflow path's fork-join and map-reduce shapes run only in phase 5:
 at 1024 tasks they pad every parent table to K = 1022 (17 GB at 4096
@@ -147,7 +177,15 @@ WORKFLOW_SCENARIO = dict(fail_rates=(0.0, 0.05))
 SHAPES = ("chain", "layered")         # the workflow path at full width
 ALL_SHAPES = ("chain", "fork_join", "map_reduce", "layered")   # phase 5
 PATHS = ("flat", "scenario", "workflow", "flat_k8", "traced",
-         "stream", "chunked")                                   # sweeps
+         "stream", "chunked", "learned", "es")                  # sweeps
+LEARNED = ("mlp", "linear")   # the learned path's policies
+# the kernels a path must launch (default: all five scheduling kernels)
+PATH_KERNELS = {"learned": ("masked_argmin", "fused_start_pick",
+                            "fused_event_bounds")}
+# the es path: launch/learn.py's full configuration, generations cut
+ES_GRID = dict(n_train=24, n_test=24, n_tasks=64, n_machines=8)
+ES_POP = 12
+ES_GENERATIONS = 6
 STREAM_TASKS = 1024           # the stream path's tasks, 4 windows
 STREAM_WINDOW = 256           # its live-task window
 STREAM_CHUNK = 64             # its arrival chunk
@@ -521,12 +559,25 @@ def make_spec(X, E, path, n_rep, n_tasks, n_mach, seed=0, max_events=None,
                                   stream_chunk=chunk)
     drain_k = 8 if path == "flat_k8" else 1
     traced = path == "traced" if traced is None else traced
+    learned = path == "learned"
     return X.ExperimentSpec(n_rep, X.FleetAxis(n_mach), workload,
                             scenario=scenario,
-                            policy=X.PolicyAxis(POLICIES),
+                            policy=X.PolicyAxis(LEARNED if learned
+                                                else POLICIES),
                             sim=E.SimParams(max_events=max_events,
                                             drain_k=drain_k),
-                            trace=traced, metrics=traced, seed=seed)
+                            trace=traced, metrics=traced, learned=learned,
+                            seed=seed)
+
+
+def path_weights(path):
+    """The learned path's shared weights, drawn on the host (a CPU
+    generator, so the card and the CPU get the same numbers); None on the
+    other paths."""
+    if path != "learned":
+        return None
+    from repro_torch.core import neural as NN
+    return NN.init_params(0, device="cpu")
 
 
 def check_workflow(S, reps, st) -> tuple[int, int]:
@@ -572,7 +623,8 @@ def run_main(X, E, K, S, ST, P, dev, path, n_rep, n_tasks, n_mach):
                             "Plan.make": (P.Plan, "make")}) as syncs:
         K.reset_launches()
         t0 = time.perf_counter()
-        res = X.run_experiment(spec, device=dev, replicas=reps, stats=stats)
+        res = X.run_experiment(spec, device=dev, replicas=reps, stats=stats,
+                               policy_params=path_weights(path))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(K.launches)
@@ -595,7 +647,7 @@ def run_main(X, E, K, S, ST, P, dev, path, n_rep, n_tasks, n_mach):
             f"mean availability "
             f"{float(res.metrics['availability'].mean()):.4f}")
     log(phase, f"kernel launches {json.dumps(launches)}")
-    for name in K.NAMES:
+    for name in PATH_KERNELS.get(path, K.NAMES):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the {path} path")
     if path == "stream":
@@ -1007,6 +1059,177 @@ def user_policy_on_card(X, E, K, P, dev) -> None:
         f"run")
 
 
+def learned_card_vs_cpu(X, E, dev) -> None:
+    """The learned path's card-vs-CPU cases at 64 x 128 x 8 with random
+    weights drawn on the host: the flat spec at K = 1 and K = 8, the
+    scenario spec, the streaming spec (W = 32) and a chunked run (chunks
+    of 24); and the warm starts on the card: ``mlp`` with
+    ``ee_mlp_params`` bitwise ``ee_mct``, with ``mct_mlp_params``
+    bitwise ``mct``."""
+    from repro_torch.core import neural as NN
+    from repro_torch.launch import chunked as CH
+    phase = "5 card=cpu"
+    pp = NN.init_params(5, device="cpu")
+
+    def spec(path="learned", **kw):
+        return make_spec(X, E, path, 64, 128, 8, seed=1, **kw)
+
+    learned = X.PolicyAxis(LEARNED)
+    cases = [("flat", spec()),
+             ("flat K=8", spec().with_(sim=E.SimParams(drain_k=8))),
+             ("scenario", spec(scenario=X.ScenarioAxis(**SCENARIO))),
+             ("streaming W=32", spec("stream", window=32, chunk=16).with_(
+                 policy=learned, learned=True))]
+    flat_cpu = None
+    for what, sp in cases:
+        on_card = X.run_experiment(sp, device=dev, policy_params=pp)
+        # the K = 8 run against the CPU's K = 1 run (the port's K-way
+        # drain is bitwise its one-decision drain, tests/test_torch_neural)
+        on_cpu = flat_cpu if what == "flat K=8" else X.run_experiment(
+            sp, device="cpu", policy_params=pp)
+        if what == "flat":
+            flat_cpu = on_cpu
+        if sp.streaming:
+            bitwise_equal(window_fields(on_card.window),
+                          window_fields(on_cpu.window),
+                          f"learned {what}: card != CPU")
+        else:
+            bitwise_equal(fields(on_card.state), fields(on_cpu.state),
+                          f"learned {what}: card != CPU")
+        bitwise_equal(on_card.metrics, on_cpu.metrics,
+                      f"learned {what}: card != CPU in the summary")
+        extra = "; against the CPU's K = 1 run" if what == "flat K=8" \
+            else ""
+        log(phase, f"64x128x8 learned {what} (mlp, linear, random "
+            f"weights): every state field and summary column bitwise equal "
+            f"to the CPU run{extra}")
+    # the chunked run against the CPU's fold of the flat case's run
+    sp = spec()
+    on_card = X.run_experiment(sp, device=dev, chunk=24, keep_replicas=True,
+                               policy_params=pp)
+    agg_equal(on_card.agg, CH.aggregate_metrics(
+        flat_cpu.metrics, flat_cpu.replicas.policy_ids, sp.policy.policies),
+        "learned chunked: card != CPU")
+    bitwise_equal(on_card.metrics, flat_cpu.metrics,
+                  "learned chunked: kept columns != the CPU run's")
+    log(phase, "learned chunked, 64 replicas in chunks of 24: every "
+        "SweepAgg field and kept column bitwise equal to the CPU run's")
+    base = make_spec(X, E, "flat", 64, 128, 8, seed=1)
+    for heuristic, warm in (("ee_mct", NN.ee_mlp_params("cpu")),
+                            ("mct", NN.mct_mlp_params("cpu"))):
+        want = X.run_experiment(base.with_(policy=X.PolicyAxis(
+            (heuristic,))), device=dev)
+        got = X.run_experiment(base.with_(policy=X.PolicyAxis(("mlp",))),
+                               device=dev, policy_params=warm)
+        bitwise_equal(fields(got.state), fields(want.state),
+                      f"mlp warm start != {heuristic} on the card")
+        log(phase, f"mlp with the {heuristic} warm start on the card: every "
+            f"state field bitwise equal to {heuristic}'s run")
+
+
+def run_es(E, K, dev, generations: int):
+    """The es path: ``learn.train_and_evaluate`` at the documented full
+    configuration with ``generations`` generations, the launch counts set
+    to 0 just before and read just after; every ``run_sweep`` call
+    counted and timed.  Returns the launches, the captured kernel inputs,
+    the execute seconds and the path's own peak device memory in GiB."""
+    from repro_torch.core import train_policy as TP
+    from repro_torch.launch import learn as L
+    phase = "4 es"
+    cfg = TP.ESConfig(pop=ES_POP, generations=generations)
+    gen_rows = (2 * ES_POP + 1) * ES_GRID["n_train"]
+    calls = []
+    real = E.run_sweep
+
+    def timed(tasks, *args, **kw):
+        t0 = time.perf_counter()
+        out = real(tasks, *args, **kw)
+        torch.cuda.synchronize()
+        calls.append((tasks.arrival.shape[0], time.perf_counter() - t0))
+        return out
+
+    out_dir = os.path.join(ROOT, "build", "learned")
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    E.run_sweep = timed
+    try:
+        with capturing(K, CAPTURE_AT) as captured:
+            K.reset_launches()
+            t0 = time.perf_counter()
+            payload = L.train_and_evaluate(cfg=cfg, out_dir=out_dir,
+                                           device=dev, **ES_GRID)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(K.launches)
+    finally:
+        E.run_sweep = real
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held
+    gens = [sec for rows, sec in calls if rows == gen_rows]
+    others = [(rows, round(sec, 3)) for rows, sec in calls
+              if rows != gen_rows]
+    log(phase, f"train_and_evaluate {ES_GRID}, pop {ES_POP}, {generations} "
+        f"generations (the documented 30 cut): {wall:.3f} s; run_sweep "
+        f"calls {len(calls)}: {len(gens)} of {gen_rows} replicas (one a "
+        f"generation), others (replicas, s) {others}; seconds a generation "
+        f"{[round(g, 3) for g in gens]} (mean {np.mean(gens):.3f}); own peak "
+        f"device memory {peak:.2f} GiB; {gpu_line()}")
+    if len(gens) != generations or len(calls) != generations + 2:
+        raise AssertionError(f"es: {len(calls)} run_sweep calls for "
+                             f"{generations} generations")
+    for h in payload["history"]["mlp"]:
+        log(phase, json.dumps(h))
+    for row in payload["rows"]:
+        log(phase, json.dumps(row))
+    names = [r["policy"] for r in payload["rows"]]
+    if len(names) != 10 or names.count("mlp*") != 1:
+        raise AssertionError(f"es: scoreboard rows {names}")
+    svg = os.path.join(out_dir, "scoreboard.svg")
+    if not open(svg).read().startswith("<svg"):
+        raise AssertionError("es: no scoreboard SVG")
+    for r in payload["rows"]:
+        if not all(np.isfinite(r[k]) for k in r if k != "policy"):
+            raise AssertionError(f"es: a scoreboard row is not finite: {r}")
+    log(phase, f"kernel launches {json.dumps(launches)}; scoreboard and "
+        f"its SVG written to {os.path.relpath(out_dir, ROOT)}/")
+    for name in PATH_KERNELS.get("es", K.NAMES):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the es path")
+    return launches, captured, wall, peak
+
+
+def es_card_vs_cpu(dev) -> None:
+    """One ES generation at pop 3 on a 4-scenario grid (64 tasks x 8
+    machines), the same host noise on the card and the CPU: ``e_scale``,
+    the fitness values, theta', the gradient norm and the best theta
+    bitwise equal."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import neural as NN
+    from repro_torch.core import train_policy as TP
+    from repro_torch.launch import experiment as X
+    from repro_torch.launch import learn as L
+    spec = L.grid_spec(4, ES_GRID["n_tasks"], ES_GRID["n_machines"], seed=0)
+    cfg = TP.ESConfig(pop=3, generations=1)
+    eps = torch.randn((cfg.pop, NN.n_trainable("mlp")),
+                      generator=torch.Generator().manual_seed(0))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        _, fitness_pop, e_scale = TP.make_fitness(
+            X.normalize(spec, device=d), E.SimParams(), "mlp")
+        init = NN.ee_mlp_params(d)
+        theta, unravel = TP.ravel(init.mlp)
+        step = TP.make_es_step(fitness_pop, unravel, init, "mlp", cfg)
+        out.append((e_scale, step(theta, eps.to(d))))
+    (e_card, got), (e_cpu, want) = out
+    if e_card != e_cpu:
+        raise AssertionError(f"es: e_scale {e_card} != {e_cpu}")
+    bitwise_equal(dict(zip(("theta", "f_all", "grad_norm", "gen_best"), got)),
+                  dict(zip(("theta", "f_all", "grad_norm", "gen_best"),
+                           want)), "es generation: card != CPU")
+    log("5 card=cpu", f"one ES generation, pop 3, 4 scenarios x 64 tasks x 8 "
+        f"machines: e_scale, f_all {want[1].tolist()}, theta', grad norm "
+        f"and best theta bitwise equal to the CPU's")
+
+
 def check_k8(X, E, dev, res, stats, wall, flat_run, n_tasks, n_mach
              ) -> None:
     """The flat path at K = 8 against the flat path at K = 1 on the card:
@@ -1394,12 +1617,13 @@ def profile_window(X, E, K, dev, path, n_rep, n_tasks, n_mach, steps=32,
     from torch.profiler import ProfilerActivity, profile
     phase = f"4 {path} profile"
     spec = make_spec(X, E, path, n_rep, n_tasks, n_mach, max_events=steps)
+    kw = {"policy_params": path_weights(path)}
     if chunk is None:
         reps = X.normalize(spec, device=dev)
-        X.run_experiment(spec, device=dev, replicas=reps)      # warm-up
-        kw = {"replicas": reps}
+        X.run_experiment(spec, device=dev, replicas=reps, **kw)   # warm-up
+        kw["replicas"] = reps
     else:
-        kw = {"chunk": chunk}
+        kw["chunk"] = chunk
     torch.cuda.synchronize()
     saved = dict(K.launches)
     stats = E.RunStats()
@@ -2023,10 +2247,14 @@ def main() -> int:
                     help="replicas of the traced path")
     ap.add_argument("--stream-replicas", type=int, default=4096,
                     help="replicas of the stream path")
-    ap.add_argument("--chunked-replicas", type=int, default=10240,
+    ap.add_argument("--chunked-replicas", type=int, default=8192,
                     help="replicas of the chunked path")
     ap.add_argument("--chunk", type=int, default=4096,
                     help="the chunked path's chunk size")
+    ap.add_argument("--learned-replicas", type=int, default=4096,
+                    help="replicas of the learned path")
+    ap.add_argument("--es-generations", type=int, default=ES_GENERATIONS,
+                    help="ES generations of the es path")
     ap.add_argument("--tasks", type=int, default=1024)
     ap.add_argument("--machines", type=int, default=32)
     ap.add_argument("--paths", default=",".join(ALL_PATHS),
@@ -2043,7 +2271,7 @@ def main() -> int:
     width = {"flat": a.flat_replicas, "scenario": a.replicas,
              "workflow": a.workflow_replicas, "flat_k8": a.k8_replicas,
              "traced": a.traced_replicas, "stream": a.stream_replicas,
-             "chunked": a.chunked_replicas}
+             "chunked": a.chunked_replicas, "learned": a.learned_replicas}
     tasks = {p: STREAM_TASKS if p == "stream" else a.tasks for p in PATHS}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -2091,6 +2319,12 @@ def main() -> int:
     launches, captured, peaks = {}, {}, {}
     flat_run = scenario_run = flat_cols = None
     for path in sweeps:
+        if path == "es":
+            launches[path], captured[path], _, peaks[path] = run_es(
+                E, K, dev, a.es_generations)
+            torch.cuda.empty_cache()
+            recheck_captured(K, KREF, captured[path], path)
+            continue
         if path == "chunked":
             res, launches[path], captured[path], stats, wall, peaks[path] \
                 = run_chunked(X, E, K, P, dev, width[path], a.chunk,
@@ -2134,6 +2368,8 @@ def main() -> int:
         del apps
         torch.cuda.empty_cache()
     for path in sweeps:
+        if path == "es":
+            continue
         if path == "chunked":
             n_rep, chunk = CHUNKED_PROFILE
             profile_window(X, E, K, dev, path, n_rep, a.tasks, a.machines,
@@ -2147,6 +2383,10 @@ def main() -> int:
             stream_card_vs_cpu(X, E, dev)
         elif path == "chunked":
             chunked_card_vs_cpu(X, E, dev)
+        elif path == "learned":
+            learned_card_vs_cpu(X, E, dev)
+        elif path == "es":
+            es_card_vs_cpu(dev)
         else:
             card_vs_cpu(X, E, dev, path)
     if "traced" in sweeps:

@@ -537,7 +537,8 @@ def run_sweep(tasks: S.TaskTable, mtype: torch.Tensor,
               params: SimParams = SimParams(),
               stats: RunStats | None = None,
               dynamics: S.MachineDynamics | None = None,
-              parents: torch.Tensor | None = None) -> S.SimState:
+              parents: torch.Tensor | None = None,
+              policy_params=None) -> S.SimState:
     """Run R replicas to completion; returns the final (R, ...) state.
 
     Every argument carries the leading replica axis and lies on the
@@ -547,7 +548,10 @@ def run_sweep(tasks: S.TaskTable, mtype: torch.Tensor,
     a ``MachineDynamics`` to make the fleet dynamic (failures, spot
     preemption, DVFS), and an (R, N, K) i32 ``parents`` table, padded
     with -1, to run workflows (a task arrives once every parent
-    completed)."""
+    completed).  ``policy_params`` (``neural.PolicyParams``) are the
+    learned policies' weights, shared by every replica or stacked along
+    a leading R axis (an ES population in one call); None =
+    ``neural.default_params()``, as in the reference."""
     stats = RunStats() if stats is None else stats
     st = S.init_state(tasks, mtype, dynamics, parents)
     r, n = st.tasks.arrival.shape
@@ -569,7 +573,8 @@ def run_sweep(tasks: S.TaskTable, mtype: torch.Tensor,
     if r == 0 or n == 0 or max_events <= 0:
         return st
     deps = None if parents is None else (parents, S.dep_index(parents))
-    plan = P.Plan.make(policy_ids.to(torch.int32), st, tables)
+    plan = P.Plan.make(policy_ids.to(torch.int32), st, tables,
+                       policy_params)
     const = P.expected_tables(st, tables)
     rows = torch.arange(r, device=mtype.device)[:, None]
     p_active = tables.power[rows, st.machines.mtype.long(), 1] * \
@@ -635,7 +640,7 @@ def simulate(workload, eet: EETTable, power: np.ndarray,
              trace: bool = False, trace_capacity: int | None = None,
              metrics: bool = False,
              metrics_spec: ME.MetricsSpec | None = None,
-             device="cuda") -> S.SimState:
+             policy_params=None, device="cuda") -> S.SimState:
     """One replica, named policy; returns a one-replica (leading axis 1)
     final state.  ``workload`` is a ``workload.Workload`` or a
     ``workload.Workflow``, whose parent table goes to the release phase
@@ -645,7 +650,8 @@ def simulate(workload, eet: EETTable, power: np.ndarray,
     ``trace=True`` attaches a ``trace.TraceBuffer`` (``.trace``, the
     input of ``core/viz.py``); ``metrics=True`` attaches
     ``metrics.SimMetrics`` instruments (``.metrics``), with
-    ``metrics_spec`` overriding the bucket and window geometry."""
+    ``metrics_spec`` overriding the bucket and window geometry.
+    ``policy_params`` supplies the ``mlp``/``linear`` weights."""
     dev = resolve_device(device)
     parents = rank = None
     if isinstance(workload, Workflow):
@@ -664,4 +670,5 @@ def simulate(workload, eet: EETTable, power: np.ndarray,
     pid = torch.tensor([P.POLICY_IDS[policy]], dtype=torch.int32,
                        device=dev)
     return run_sweep(workload.to_task_table(dev), mtype, tables, pid, params,
-                     dynamics=dynamics, parents=parents)
+                     dynamics=dynamics, parents=parents,
+                     policy_params=policy_params)

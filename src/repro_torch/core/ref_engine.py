@@ -2,13 +2,15 @@
 
 A numpy copy of ``repro/core/ref_engine.py``'s ``_Sim`` and
 ``simulate_ref``, limited to what ``serving.ServingEngine``, the
-workflow and the streaming tests run: a static fleet and the ten
-heuristics, on independent tasks or a workflow (``parents`` and HEFT
-``rank``), densely or through the streaming window (``window=W``: at
-most W tasks loaded and not retired, loaded in id order as slots
-retire), with no trace, metrics or learned policy.  The float64 arithmetic and
-every tie-break are the reference's, so for the same inputs every result
-is equal to the reference's, not close: a static fleet's speed and power
+workflow, the streaming and the learned-policy tests run: a static fleet,
+the ten heuristics and the learned ``mlp``/``linear`` policies (their
+float32 numpy forward pass, ``neural.score_machines_np``), on
+independent tasks or a workflow (``parents`` and HEFT ``rank``), densely
+or through the streaming window (``window=W``: at most W tasks loaded
+and not retired, loaded in id order as slots retire), with no trace or
+metrics.  The float64 arithmetic and every tie-break are the
+reference's, so for the same inputs every result is equal to the
+reference's, not close: a static fleet's speed and power
 multipliers are 1.0, whose division and product the copy leaves out as
 exact.
 
@@ -21,11 +23,12 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.core import neural as NN
 from repro_torch.core import state as S
 
 BIG = 1e30
 POLICIES = ("fcfs", "rr", "met", "mct", "ee_met", "ee_mct", "minmin",
-            "maxmin", "edf_mct", "heft")
+            "maxmin", "edf_mct", "heft") + NN.LEARNED_POLICIES
 
 
 @dataclass
@@ -57,6 +60,9 @@ class _Sim:
     rank: np.ndarray | None = None           # (N,) HEFT upward ranks
     window: int | None = None                # streaming window (None:
     #                                          every task loaded)
+    policy_params: dict | None = None        # learned weights, the
+    #                                          params_to_numpy dict (None:
+    #                                          the engine's zero default)
 
     status: np.ndarray = field(init=False)
     machine: np.ndarray = field(init=False)
@@ -76,6 +82,8 @@ class _Sim:
             raise ValueError(f"unknown or unported policy {self.policy!r}; "
                              f"the port's reference loop has {POLICIES}")
         n, m = len(self.arrival), len(self.mtype)
+        if self.policy_params is None:
+            self.policy_params = NN.params_to_numpy(None)
         if self.rank is None:
             self.rank = np.zeros(n, np.float64)
         self.status = np.full(n, S.NOT_ARRIVED, np.int32)
@@ -225,6 +233,22 @@ class _Sim:
                 self.running[m] = -1
 
     # ---- scheduler -------------------------------------------------------
+    def _learned_scores(self, t: int) -> np.ndarray:
+        """(M,) learned-policy scores for mapping task ``t`` to each
+        machine: the float32 numpy features and forward pass."""
+        n_m = len(self.mtype)
+        eet_row = np.array([self.expected(t, m) for m in range(n_m)],
+                           np.float32)
+        en_row = np.array([self.expected(t, m) * self.p_active(m)
+                           for m in range(n_m)], np.float32)
+        avail = np.array([self.avail(m) for m in range(n_m)], np.float32)
+        mq = np.array([len(self.queue_of(m)) for m in range(n_m)],
+                      np.float32)
+        room = np.array([self.room(m) for m in range(n_m)], bool)
+        feats = NN.machine_features_np(eet_row, en_row, avail, self.time,
+                                       self.deadline[t], mq, room)
+        return NN.score_machines_np(self.policy_params, feats, self.policy)
+
     def decide(self):
         """Returns (task, machine) or None; the reference's rules."""
         q = self.batch_queue()
@@ -232,6 +256,9 @@ class _Sim:
         if not q or not rooms:
             return None
         head = q[0]
+        if self.policy in NN.LEARNED_POLICIES:
+            scores = self._learned_scores(head)
+            return head, min(rooms, key=lambda m: (scores[m], m))
         avail = {m: self.avail(m) for m in rooms}
         if self.policy == "fcfs":
             m = min(rooms, key=lambda m: (avail[m], m))
@@ -372,12 +399,16 @@ def simulate_ref(arrival, type_id, deadline, eet, power, mtype, *,
                  policy="mct", lcap=4, qcap=1 << 30,
                  cancel_infeasible=True, noise=None,
                  max_events=None, parents=None, rank=None,
-                 window=None) -> RefResult:
+                 window=None, policy_params=None) -> RefResult:
     """One run of the reference loop on a static fleet; ``parents`` (N,
     K) and ``rank`` (N,) make it a workflow run (pass the float32 ranks
     the engine gets, so that the ``heft`` orders agree); ``window=W``
     runs it through the streaming window, the oracle of
-    ``streaming.run_stream`` when N > W."""
+    ``streaming.run_stream`` when N > W.  ``policy_params``, a shared
+    ``neural.PolicyParams`` or the ``params_to_numpy`` dict, supplies
+    the learned policies' weights (None: all zeros)."""
+    if policy_params is not None and not isinstance(policy_params, dict):
+        policy_params = NN.params_to_numpy(policy_params)
     arrival = np.asarray(arrival, np.float64)
     if noise is None:
         noise = np.ones(len(arrival))
@@ -389,5 +420,5 @@ def simulate_ref(arrival, type_id, deadline, eet, power, mtype, *,
                parents=None if parents is None
                else np.asarray(parents, np.int32),
                rank=None if rank is None else np.asarray(rank, np.float64),
-               window=window)
+               window=window, policy_params=policy_params)
     return sim.run(max_events)

@@ -3,16 +3,17 @@
 The counterpart of ``repro.core.schedulers``: the ten heuristics
 ``fcfs, rr, met, mct, ee_met, ee_mct, minmin, maxmin, edf_mct, heft``
 with the reference's policy ids, the cancellation wrapper and
-``dispatch``.  The learned ``mlp``/``linear`` policies keep their ids
-but raise ``NotImplementedError``; they never fall back to another
-policy.  Down machines of a dynamic fleet have no ``room``, so every
+``dispatch``, and the learned ``mlp``/``linear`` policies
+(``core/neural.py``) with the weights that ``Plan.make`` keeps for their
+rows.  Down machines of a dynamic fleet have no ``room``, so every
 policy is failure-aware through the view.
 
 The reference evaluates one replica at a time and picks the policy with
 ``lax.switch``.  Here one call decides for all R replicas at once, each
 with its own policy.  The immediate policies (every one but ``rr`` and
-``minmin``) share a shape — pick a task, score the machines, take the
-masked argmin — so each returns its task and (R, M) score and mask rows,
+``minmin``, the learned ones included) share a shape — pick a task,
+score the machines, take the masked argmin — so each returns its task
+and (R, M) score and mask rows,
 ``dispatch`` selects the rows by policy id and reduces them with ONE
 ``masked_argmin`` for the whole batch; ``minmin`` and ``maxmin`` run
 their fused kernels on the replicas that use them.  Every replica's
@@ -22,8 +23,9 @@ decision is the one its
 ``dispatch_k`` makes up to K sequential drain decisions in one call, as
 the reference's K-way drain does: the head, deadline and rank ordered
 policies construct them exactly with a K-step scan over (R, M) rows, and
-``rr``, ``minmin`` and ``maxmin`` speculate K tasks under the frozen view
-and keep the longest prefix that the sequential drain would also take.
+``rr``, ``minmin``, ``maxmin`` and the learned policies speculate K tasks
+under the frozen view and keep the longest prefix that the sequential
+drain would also take.
 Each policy runs on its own replica rows, as in ``dispatch``: the
 reference's ``lax.switch`` over every branch is not paid.
 
@@ -41,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import neural as NN
 from repro_torch.core import state as S
 from repro_torch.kernels import sched_argmin as K
 
@@ -51,12 +54,6 @@ POLICY_NAMES = ["fcfs", "rr", "met", "mct", "ee_met", "ee_mct", "minmin",
                 "maxmin", "edf_mct", "heft", "mlp", "linear"]
 POLICY_IDS = {name: i for i, name in enumerate(POLICY_NAMES)}
 BUILTIN = frozenset(POLICY_NAMES)
-NOT_PORTED = {
-    "mlp": "learned policies are not ported yet (ROADMAP.md, queue A "
-           "item 14)",
-    "linear": "learned policies are not ported yet (ROADMAP.md, queue A "
-              "item 14)",
-}
 
 
 class Decision(NamedTuple):
@@ -299,30 +296,34 @@ def scaled_eet_table(state: S.SimState, tables: S.StaticTables
 @dataclass
 class Plan:
     """Which policies a batch runs, fixed for the whole run: per-replica
-    selection masks, and for ``minmin``/``maxmin`` the replica rows that
-    run them (None = every replica) with those rows' kernel tables."""
+    selection masks, the replica rows of each policy (None = every
+    replica), for ``minmin``/``maxmin`` those rows' kernel tables and for
+    the learned policies those rows' weights."""
     names: tuple[str, ...]              # policies present
     is_policy: dict                     # name -> bool (R,)
     pair_rows: dict                     # name -> (R_p,) rows or None
     eet_m: dict                         # name -> (R_p, T, M) kernel table
     rows: dict                          # name -> (R_p,) rows or None,
     #                                     for every policy present
+    learned: dict = field(default_factory=dict)  # name -> the rows'
+    #                                     neural.PolicyParams
     eet_mk: dict = field(default_factory=dict)  # (name, k) -> the kernel
-    #                                     table repeated for k views
+    #                                     table (or the learned weights)
+    #                                     repeated for k views
 
     @classmethod
     def make(cls, policy_ids: torch.Tensor, state: S.SimState,
-             tables: S.StaticTables) -> "Plan":
+             tables: S.StaticTables,
+             policy_params: NN.PolicyParams | None = None) -> "Plan":
+        """``policy_params``: the learned policies' weights, shared (no
+        leading axis) or one set per replica (leading R axis); None =
+        ``neural.default_params()``."""
         present = sorted(set(policy_ids.tolist()))
         names = []
         for pid in present:
             if not 0 <= pid < len(POLICY_NAMES):
                 raise ValueError(f"unknown policy id {pid}")
-            name = POLICY_NAMES[pid]
-            if name in NOT_PORTED:
-                raise NotImplementedError(
-                    f"policy {name!r}: {NOT_PORTED[name]}")
-            names.append(name)
+            names.append(POLICY_NAMES[pid])
         is_policy = {n: policy_ids == POLICY_IDS[n] for n in names}
         rows = {n: None if len(names) == 1 else
                 torch.nonzero(is_policy[n])[:, 0] for n in names}
@@ -332,7 +333,20 @@ class Plan:
         for name in pair:
             pair_rows[name] = rows[name]
             eet_m[name] = table if rows[name] is None else table[rows[name]]
-        return cls(tuple(names), is_policy, pair_rows, eet_m, rows)
+        learned = {}
+        learned_names = [n for n in NN.LEARNED_POLICIES if n in names]
+        if learned_names:
+            dev = policy_ids.device
+            pp = NN.default_params(dev) if policy_params is None \
+                else policy_params.to(dev)
+            per_replica = NN.stacked(pp)
+            if per_replica and pp.mlp.w1.shape[0] != policy_ids.shape[0]:
+                raise ValueError(f"policy_params carry {pp.mlp.w1.shape[0]}"
+                                 f" replicas, the run {policy_ids.shape[0]}")
+            for name in learned_names:
+                learned[name] = pp if rows[name] is None or not per_replica \
+                    else NN.map_params(lambda x, r=rows[name]: x[r], pp)
+        return cls(tuple(names), is_policy, pair_rows, eet_m, rows, learned)
 
 
 def _cancel_wrap(dec: Decision, view: SchedView, state: S.SimState,
@@ -359,22 +373,37 @@ def dispatch(plan: Plan, state: S.SimState, tables: S.StaticTables,
     task = torch.full((r,), -1, dtype=torch.int32, device=view.head.device)
     machine = task.clone()
 
-    imm, decided = [], []
+    imm, decided = [], []          # imm: (name, rows, (task, scores, mask))
     for name in plan.names:
-        if name in IMMEDIATE or _user(name):
+        if name in plan.learned:
+            # the learned rows' scores, computed on those rows alone
+            imm.append((name, plan.rows[name], NN.POLICIES[name](
+                state, view, plan.learned[name], plan.rows[name])))
+        elif name in IMMEDIATE or _user(name):
             out = SCHEDULERS[name](state, view)
-            (decided if isinstance(out, Decision) else imm).append(
-                (name, out))
+            if isinstance(out, Decision):
+                decided.append((name, out))
+            else:
+                imm.append((name, None, out))
     if imm:
         t_sel = s_sel = m_sel = None
-        for name, (t, s, mk) in imm:
-            if t_sel is None:
+        for name, rows, (t, s, mk) in imm:
+            if rows is None and t_sel is None:
                 t_sel, s_sel, m_sel = t, s, mk
-            else:
+                continue
+            if t_sel is None:
+                t_sel = torch.full_like(view.head, -1)
+                s_sel = torch.full_like(view.avail, BIG)
+                m_sel = view.room
+            if rows is None:
                 on = plan.is_policy[name]
                 t_sel = torch.where(on, t, t_sel)
                 s_sel = torch.where(on[:, None], s, s_sel)
                 m_sel = torch.where(on[:, None], mk, m_sel)
+            else:
+                t_sel = t_sel.index_copy(0, rows, t)
+                s_sel = s_sel.index_copy(0, rows, s)
+                m_sel = m_sel.index_copy(0, rows, mk)
         dec = _head_decision(view, t_sel, _pick_machine(view, s_sel, m_sel))
         task, machine = dec.task, dec.machine
     for name, dec in decided:
@@ -419,13 +448,15 @@ _SCAN_RULES: dict[str, tuple[str, str]] = {
 # (FIFO, or each task's best frozen completion, ascending for Min-Min and
 # descending for Max-Min) and validate a sequentially consistent prefix.
 _SPEC_ORDER: dict[str, str] = {"rr": "head", "minmin": "minmin",
-                               "maxmin": "maxmin"}   # user policies: head
+                               "maxmin": "maxmin"}   # learned and user
+#                                                      policies: head
 
 # Min-Min's choice provably survives the prefix corrections (all prefix
 # machines distinct: the winner's cell is untouched, every other
 # corrected cell only grows or loses its room).  ``rr`` (its pointer
-# moves with each map) and ``maxmin`` (its argmax over growing row
-# minima can flip) extend their prefix only past cancels.
+# moves with each map), ``maxmin`` (its argmax over growing row minima
+# can flip) and the learned and user policies (opaque scores) extend
+# their prefix only past cancels.
 _SPECULATIVE_SAFE = {"minmin"}
 
 
@@ -598,7 +629,9 @@ def _speculate_k(name: str, plan: Plan, state: S.SimState,
     in_batch_k = in_batch[:, None, :] & (pos[:, None, :n]
                                          >= steps[None, :, None])
     any_k = in_batch_k.any(2)                                   # (R_p, k)
-    if _user(name):
+    if name in plan.learned:
+        task, mach = _learned_k(name, plan, state, view, k, spec)
+    elif _user(name):
         task, mach = (sel(x) for x in _user_k(name, state, view, k))
     elif name == "rr":
         order = (torch.arange(n_m, device=dev)[None, :]
@@ -670,6 +703,38 @@ def _speculate_k(name: str, plan: Plan, state: S.SimState,
     addv = torch.where(moh_used, eet_t, 0.0).sum(1)
     avail_after = torch.where(moh_used.any(1), avail + addv, avail)
     return (task, mach, cancel), use, avail_after
+
+
+def _learned_k(name: str, plan: Plan, state: S.SimState, view: SchedView,
+               k: int, first: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R_p, k) task and machine of learned policy ``name`` on its rows
+    in each of the k views: view j's FIFO head is ``first[:, j]``, the
+    j-th queued task; avail, room and queue depths are the frozen view's.
+    The k views' features and scores are computed at once over R_p k
+    rows, each replica's weights repeated for its k views, and the
+    machine picks are one ``masked_argmin`` over (R_p k, 1, M) rows."""
+    rows = plan.rows[name]
+    r_p = first.shape[0]
+    if rows is None:
+        rows = torch.arange(r_p, device=first.device)
+    rep = rows.repeat_interleave(k)
+    head = first.reshape(-1)
+    feats = NN.head_features(state, view, rep, head)
+    params = plan.learned[name]
+    if NN.stacked(params):
+        key = (name, k)
+        if key not in plan.eet_mk:
+            plan.eet_mk[key] = NN.map_params(
+                lambda x: x.repeat_interleave(k, 0), params)
+        params = plan.eet_mk[key]
+    scores = torch.where((head >= 0)[:, None],
+                         NN.scores(name, params, feats), BIG)
+    room = view.room[rep]
+    m, _ = K.masked_argmin(scores[:, None, :], room[:, None, :])
+    ok = (first >= 0) & view.any_room[rows][:, None]
+    return (torch.where(ok, first, -1).to(torch.int32),
+            torch.where(ok, m.view(r_p, k), -1).to(torch.int32))
 
 
 def _user_k(name: str, state: S.SimState, view: SchedView, k: int

@@ -385,7 +385,8 @@ def run_stream(stream: TaskStream, mtype: torch.Tensor, eet: torch.Tensor,
                power: torch.Tensor, policy_ids: torch.Tensor,
                params: StreamParams,
                dynamics: S.MachineDynamics | None = None,
-               stats: E.RunStats | None = None) -> WindowState:
+               stats: E.RunStats | None = None,
+               policy_params=None) -> WindowState:
     """Run R streaming replicas to completion; returns the final
     :class:`WindowState` (aggregates in ``.agg``, the fleet in
     ``.sim.machines``, the last resident tasks in the window columns).
@@ -394,7 +395,9 @@ def run_stream(stream: TaskStream, mtype: torch.Tensor, eet: torch.Tensor,
     ``launch.experiment.to_streams``); ``eet`` (R, T, Mt) and ``power``
     (R, Mt, 2) are the global tables, per-task noise and rank ride in the
     stream; ``policy_ids`` (R,); every argument on the run's device.
-    ``stats`` receives the loop counters; ``events`` counts trips."""
+    ``stats`` receives the loop counters; ``events`` counts trips.
+    ``policy_params`` are the learned policies' weights, as in
+    ``engine.run_sweep``."""
     stats = E.RunStats() if stats is None else stats
     dev = mtype.device
     w = int(params.window)
@@ -446,7 +449,8 @@ def run_stream(stream: TaskStream, mtype: torch.Tensor, eet: torch.Tensor,
     if r == 0:
         return ws
     rows = torch.arange(r, device=dev)[:, None]
-    run = _Run(plan=P.Plan.make(policy_ids.to(torch.int32), sim, wtab),
+    run = _Run(plan=P.Plan.make(policy_ids.to(torch.int32), sim, wtab,
+                                policy_params),
                sparams=params.sim_params(),
                p_active=wtab.power[rows, sim.machines.mtype.long(), 1]
                * sim.machines.power_scale,
@@ -661,13 +665,14 @@ def simulate_stream(workload, eet: EETTable | np.ndarray, power: np.ndarray,
                     trace: bool = False, trace_capacity: int | None = None,
                     max_events: int | None = None, metrics: bool = False,
                     metrics_spec: ME.MetricsSpec | None = None,
-                    device="cuda") -> StreamResult:
+                    policy_params=None, device="cuda") -> StreamResult:
     """One streaming replica, named policy: the ``engine.simulate``
     mirror.  ``window`` is W; ``chunk`` the stream granularity (default
     ``min(n_tasks, window)``; results do not depend on it).
     ``workload`` is a ``Workload`` or a ``Workflow`` (its dependency
     frontier must fit the window); ``dynamics`` (leading axis 1, on
-    ``device``) makes the fleet dynamic."""
+    ``device``) makes the fleet dynamic; ``policy_params`` supplies the
+    ``mlp``/``linear`` weights."""
     dev = resolve_device(device)
     eet_arr = np.asarray(getattr(eet, "eet", eet), np.float32)
     parents = rank = None
@@ -694,7 +699,7 @@ def simulate_stream(workload, eet: EETTable | np.ndarray, power: np.ndarray,
         torch.as_tensor(eet_arr[None], device=dev),
         torch.as_tensor(np.asarray(power, np.float32)[None], device=dev),
         torch.tensor([P.POLICY_IDS[policy]], dtype=torch.int32, device=dev),
-        params, dynamics)
+        params, dynamics, policy_params=policy_params)
     return StreamResult(ws=ws, n_tasks=n, params=params, dynamics=dynamics,
                         eet=eet_arr, power=np.asarray(power),
                         mtype=mtype)

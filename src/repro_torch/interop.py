@@ -7,9 +7,10 @@ the parent tables, each with a leading replica axis — into the port's
 tensors, so both engines compute on the same data;
 ``dynamics_from_numpy`` converts the dynamics alone;
 ``lm_params_from_numpy`` turns a language model's parameter tree into the
-port's parameters.  All read their inputs through ``numpy.asarray``,
-attribute and key access only, so they import nothing of the JAX
-package.
+port's parameters, ``policy_params_from_numpy`` the learned policies'
+weights into ``neural.PolicyParams``.  All read their inputs through
+``numpy.asarray``, attribute and key access only, so they import nothing
+of the JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import neural as NN
 from repro_torch.core import state as S
 from repro_torch.core.workload import task_table
 from repro_torch.launch.experiment import Replicas
@@ -97,3 +99,19 @@ def lm_params_from_numpy(tree, cfg, device="cuda") -> dict:
         "suffix": conv(stack["suffix"]),
     }
     return out
+
+
+def policy_params_from_numpy(d: dict, device="cuda"):
+    """The reference's ``neural.params_to_numpy`` dict (``w1, b1, w2,
+    b2, lw``, each with an optional leading replica axis) as the port's
+    ``neural.PolicyParams`` on ``device`` in f32: how the tests carry the
+    reference's weights across."""
+    dev = resolve_device(device)
+
+    def put(key):
+        return torch.as_tensor(np.array(d[key], np.float32, copy=True),
+                               device=dev)
+
+    return NN.PolicyParams(NN.MLPParams(put("w1"), put("b1"), put("w2"),
+                                        put("b2")),
+                           NN.LinearParams(put("lw")))

@@ -400,8 +400,8 @@ def run_chunked_experiment(spec: X.ExperimentSpec, chunk: int, *,
                            keep_replicas: bool = False,
                            on_chunk: Callable[[int], None] | None = None,
                            aspec: ME.MetricsSpec = SWEEP_SPEC,
-                           stats: E.RunStats | None = None
-                           ) -> X.ExperimentResult:
+                           stats: E.RunStats | None = None,
+                           policy_params=None) -> X.ExperimentResult:
     """The chunked twin of ``run_experiment``, normally reached as
     ``run_experiment(spec, chunk=...)``.
 
@@ -411,8 +411,10 @@ def run_chunked_experiment(spec: X.ExperimentSpec, chunk: int, *,
     two chunks are in flight.  ``replicas`` (on ``device``) replaces the
     draws with slices of the caller's grid; ``on_chunk(c)`` fires as
     chunk c retires; ``stats`` sums the engine's counters over the
-    chunks.  Returns an ``experiment.ExperimentResult`` whose ``agg`` is
-    the :class:`SweepAgg` and ``chunked`` the :class:`ChunkedStats`;
+    chunks; ``policy_params``, shared by every replica, are the learned
+    policies' weights.  Returns an ``experiment.ExperimentResult`` whose
+    ``agg`` is the :class:`SweepAgg` and ``chunked`` the
+    :class:`ChunkedStats`;
     ``metrics`` holds the per-replica columns on the host only with
     ``keep_replicas=True``."""
     chunk = int(chunk)
@@ -429,6 +431,9 @@ def run_chunked_experiment(spec: X.ExperimentSpec, chunk: int, *,
         raise ValueError(f"replicas carry {replicas.n_replicas} rows, "
                          f"spec asks for {n_rep}")
     dev = resolve_device(device)
+    if policy_params is not None:
+        # once, before the loop: a copy inside it would wait for the host
+        policy_params = policy_params.to(dev)
     n_chunks = -(-n_rep // chunk)
     policies = spec.policy.policies
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -477,7 +482,7 @@ def run_chunked_experiment(spec: X.ExperimentSpec, chunk: int, *,
                 t.record_stream(compute)
                 return t
             reps, pol_idx = S._map(reps, used_here), used_here(pol_idx)
-        metrics = X._execute(spec, reps, stats).metrics
+        metrics = X._execute(spec, reps, stats, policy_params).metrics
         if not cols:
             cols.update({k: _init_column(len(policies), aspec, dev)
                          for k in sorted(metrics)})

@@ -34,8 +34,10 @@ columns ``resp/wait/slow/qdepth_p50/p95/p99`` to the summary, computed
 on the device.  ``WorkloadAxis(streaming=W)`` runs every replica
 through the bounded-memory window engine (``core/streaming.py``) with
 the same draws and the same summary columns, computed from the running
-aggregates (:func:`to_streams` packs the inputs).  Learned-policy cells
-are a later slice of the port; their axis does not exist here yet.
+aggregates (:func:`to_streams` packs the inputs).  The learned ``mlp``
+and ``linear`` policies run like any other; ``run_experiment(spec,
+policy_params=...)`` gives them their weights (``ExperimentSpec(
+learned=True)`` declares that a spec takes them, as in the reference).
 """
 from __future__ import annotations
 
@@ -196,7 +198,9 @@ class ExperimentSpec:
     """One experiment: each replica draws its own EET table, power
     table, workload, noise, fleet and, with a ``scenario`` axis, machine
     dynamics; the grid cell of replica r follows the module docstring.
-    ``trace`` and ``metrics`` fold into the effective ``sim_params``."""
+    ``trace`` and ``metrics`` fold into the effective ``sim_params``;
+    ``learned=True`` declares that the run takes shared
+    ``neural.PolicyParams`` (pass them to :func:`run_experiment`)."""
     n_replicas: int
     fleet: FleetAxis
     workload: WorkloadAxis
@@ -205,6 +209,7 @@ class ExperimentSpec:
     sim: E.SimParams = field(default_factory=E.SimParams)
     trace: bool = False
     metrics: bool = False
+    learned: bool = False
     seed: int = 0
 
     def __post_init__(self):
@@ -558,7 +563,8 @@ class ExperimentResult:
 
 
 def _execute(spec: ExperimentSpec, reps: Replicas,
-            stats: E.RunStats | None = None) -> ExperimentResult:
+             stats: E.RunStats | None = None,
+             policy_params=None) -> ExperimentResult:
     """Run the replicas ``reps`` of ``spec`` on their device and
     summarize them there: ``engine.run_sweep``, or for a streaming spec
     ``streaming.run_stream`` on :func:`to_streams` of them."""
@@ -566,13 +572,15 @@ def _execute(spec: ExperimentSpec, reps: Replicas,
         stream = to_streams(reps, spec.stream_chunk)
         ws = ST.run_stream(stream, reps.mtype, reps.tables.eet,
                            reps.tables.power, reps.policy_ids,
-                           spec.stream_params, reps.dynamics, stats)
+                           spec.stream_params, reps.dynamics, stats,
+                           policy_params)
         n = (stream.gid >= 0).sum((1, 2), dtype=torch.int32)
         return ExperimentResult(
             spec, reps, ST.summarize_stream_replica(ws, n, reps.dynamics),
             traces=ws.sim.trace, window=ws)
     st = E.run_sweep(reps.tasks, reps.mtype, reps.tables, reps.policy_ids,
-                     spec.sim_params, stats, reps.dynamics, reps.parents)
+                     spec.sim_params, stats, reps.dynamics, reps.parents,
+                     policy_params)
     return ExperimentResult(
         spec, reps, summarize_replica(st, reps.tables, reps.dynamics), st,
         st.trace)
@@ -582,12 +590,14 @@ def run_experiment(spec: ExperimentSpec, *, device="cuda",
                    replicas: Replicas | None = None,
                    stats: E.RunStats | None = None,
                    chunk: int | None = None, keep_replicas: bool = False,
-                   on_chunk=None) -> ExperimentResult:
+                   on_chunk=None, policy_params=None) -> ExperimentResult:
     """normalize -> run every replica -> summarize, on ``device``; a
     streaming spec runs ``streaming.run_stream`` and returns its final
     window in ``.window``.  ``replicas`` skips normalization (e.g.
     inputs made by ``interop.replicas_from_numpy``); ``stats`` receives
-    the engine's loop counters.
+    the engine's loop counters; ``policy_params`` (``neural.
+    PolicyParams``, shared by the replicas) are the learned policies'
+    weights.
 
     ``chunk=C`` runs the grid C replicas at a time
     (``launch/chunked.run_chunked_experiment``): each chunk's summaries
@@ -607,7 +617,8 @@ def run_experiment(spec: ExperimentSpec, *, device="cuda",
         from repro_torch.launch.chunked import run_chunked_experiment
         return run_chunked_experiment(
             spec, chunk, device=device, replicas=replicas,
-            keep_replicas=keep_replicas, on_chunk=on_chunk, stats=stats)
+            keep_replicas=keep_replicas, on_chunk=on_chunk, stats=stats,
+            policy_params=policy_params)
     if keep_replicas or on_chunk is not None:
         raise ValueError("keep_replicas/on_chunk only apply with chunk=")
     dev = resolve_device(device)
@@ -619,7 +630,7 @@ def run_experiment(spec: ExperimentSpec, *, device="cuda",
             nsp["reused"] = replicas is not None
         xsp["n_replicas"] = reps.n_replicas
         with TL.span("execute"):
-            res = _execute(spec, reps, stats)
+            res = _execute(spec, reps, stats, policy_params)
             # only wait for the card when someone is timing the stage
             if TL.current() is not None and dev.type == "cuda":
                 torch.cuda.synchronize(dev)

@@ -15,10 +15,11 @@ The reference's deprecated constructors (``build_sim_sweep``,
 ``jitted_scenario_sweep``, ``make_scenario_replicas``,
 ``make_workflow_replicas``) delegate to the spec pipeline and emit one
 ``DeprecationWarning`` per process each; the sweep shims return plain
-callables where the reference returns jitted ones.  Learned-policy
-weights (``learned=``, ``policy_params=``) are not ported (ROADMAP.md,
-queue A item 14); the mesh-sharded ``build_sharded_sweep`` waits for the
-launch layer of queue A item 17.
+callables where the reference returns jitted ones.  ``learned=True``
+adds the reference's trailing ``policy_params`` argument (shared
+``neural.PolicyParams``) to a sweep shim, and ``run_grouped_sweep``
+takes them as ``policy_params=``; the mesh-sharded
+``build_sharded_sweep`` waits for the launch layer of queue A item 17.
 """
 from __future__ import annotations
 
@@ -29,7 +30,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine as E
-from repro_torch.core import schedulers as P
 from repro_torch.core import state as S
 from repro_torch.launch.experiment import (ExperimentSpec, FleetAxis,
                                            PolicyAxis, Replicas,
@@ -58,21 +58,17 @@ def _deprecated(name: str, hint: str) -> None:
         f"(docs/experiments.md)", DeprecationWarning, stacklevel=3)
 
 
-def _refuse_learned(learned: bool, policy_params=None) -> None:
-    if learned or policy_params is not None:
-        raise NotImplementedError(
-            f"learned-policy weights: {P.NOT_PORTED['mlp']}")
-
-
 def _sweep(params: E.SimParams):
-    """``f(tasks, mtype, tables, policy_ids, dynamics, parents) ->
-    metrics``, or ``(metrics, traces)`` with ``params.trace``: the
-    stacked inputs run on their device and summarized there (the plain
-    counterpart of the reference's ``compile_sweep``)."""
+    """``f(tasks, mtype, tables, policy_ids, dynamics, parents,
+    policy_params) -> metrics``, or ``(metrics, traces)`` with
+    ``params.trace``: the stacked inputs run on their device and
+    summarized there (the plain counterpart of the reference's
+    ``compile_sweep``)."""
     def sweep(tasks, mtype, tables, policy_ids, dynamics=None,
-              parents=None):
+              parents=None, policy_params=None):
         st = E.run_sweep(tasks, mtype, tables, policy_ids, params,
-                         dynamics=dynamics, parents=parents)
+                         dynamics=dynamics, parents=parents,
+                         policy_params=policy_params)
         m = summarize_replica(st, tables, dynamics)
         return (m, st.trace) if params.trace else m
     return sweep
@@ -84,11 +80,15 @@ def _sweep(params: E.SimParams):
 def build_sim_sweep(n_tasks: int, n_machines: int,
                     params: E.SimParams = E.SimParams(),
                     learned: bool = False, workflow: bool = False):
-    """DEPRECATED shim: ``f(tasks, mtype, tables, policy_ids[, parents])
-    -> metrics`` (the legacy argument orders)."""
+    """DEPRECATED shim: ``f(tasks, mtype, tables, policy_ids[, parents]
+    [, policy_params]) -> metrics`` (the legacy argument orders;
+    ``learned`` takes precedence over ``workflow``, as in the
+    reference)."""
     _deprecated("build_sim_sweep", "run_experiment")
-    _refuse_learned(learned)
     fn = _sweep(params)
+    if learned:
+        return lambda tt, mt, tb, pid, pp: fn(tt, mt, tb, pid,
+                                              policy_params=pp)
     if workflow:
         return lambda tt, mt, tb, pid, par: fn(tt, mt, tb, pid, None, par)
     return lambda tt, mt, tb, pid: fn(tt, mt, tb, pid)
@@ -98,10 +98,16 @@ def build_scenario_sweep(n_tasks: int, n_machines: int,
                          params: E.SimParams = E.SimParams(),
                          learned: bool = False, workflow: bool = False):
     """DEPRECATED shim: ``f(tasks, mtype, tables, policy_ids, dynamics[,
-    parents]) -> metrics`` (the legacy argument orders)."""
+    parents][, policy_params]) -> metrics`` (the legacy argument
+    orders)."""
     _deprecated("build_scenario_sweep", "run_experiment")
-    _refuse_learned(learned)
     fn = _sweep(params)
+    if learned and workflow:
+        return lambda tt, mt, tb, pid, dyn, par, pp: fn(tt, mt, tb, pid,
+                                                        dyn, par, pp)
+    if learned:
+        return lambda tt, mt, tb, pid, dyn, pp: fn(tt, mt, tb, pid, dyn,
+                                                   policy_params=pp)
     if workflow:
         return lambda tt, mt, tb, pid, dyn, par: fn(tt, mt, tb, pid, dyn,
                                                     par)
@@ -125,16 +131,18 @@ _SWEEP_CACHE: dict = {}
 def jitted_scenario_sweep(n_tasks: int, n_machines: int,
                           params: E.SimParams = E.SimParams(),
                           learned: bool = False):
-    """DEPRECATED shim: ``f(tasks, mtype, tables, policy_ids, dynamics)
-    -> metrics``, one callable per (shape, params) key, as the
-    reference keeps its identity stable."""
+    """DEPRECATED shim: ``f(tasks, mtype, tables, policy_ids, dynamics[,
+    policy_params]) -> metrics``, one callable per (shape, params,
+    learned) key, as the reference keeps its identity stable."""
     _deprecated("jitted_scenario_sweep", "run_experiment")
-    _refuse_learned(learned)
-    key = (n_tasks, n_machines, params)
+    key = (n_tasks, n_machines, params, learned)
     if key not in _SWEEP_CACHE:
         fn = _sweep(params)
-        _SWEEP_CACHE[key] = lambda tt, mt, tb, pid, dyn: fn(tt, mt, tb,
-                                                            pid, dyn)
+        _SWEEP_CACHE[key] = (
+            (lambda tt, mt, tb, pid, dyn, pp: fn(tt, mt, tb, pid, dyn,
+                                                 policy_params=pp))
+            if learned else
+            (lambda tt, mt, tb, pid, dyn: fn(tt, mt, tb, pid, dyn)))
     return _SWEEP_CACHE[key]
 
 
@@ -162,8 +170,9 @@ def run_grouped_sweep(inputs, params: E.SimParams = E.SimParams(),
                       policy_params=None) -> dict:
     """One ``run_sweep`` per distinct policy id, each group's summaries
     stitched back into replica order: (R,) columns on the inputs'
-    device.  ``inputs`` is a flat ``Replicas`` or a legacy 4-tuple."""
-    _refuse_learned(False, policy_params)
+    device.  ``inputs`` is a flat ``Replicas`` or a legacy 4-tuple;
+    ``policy_params`` (shared ``neural.PolicyParams``) supplies the
+    learned policies' weights."""
     if isinstance(inputs, Replicas):
         if inputs.dynamics is not None or inputs.parents is not None:
             raise ValueError(
@@ -178,7 +187,7 @@ def run_grouped_sweep(inputs, params: E.SimParams = E.SimParams(),
         sel = torch.as_tensor(np.nonzero(pids_np == pid)[0],
                               device=pids.device)
         st = E.run_sweep(tt.take(sel), mt[sel], tb.take(sel), pids[sel],
-                         params)
+                         params, policy_params=policy_params)
         for k, col in summarize_replica(st, tb.take(sel)).items():
             if k not in merged:
                 merged[k] = torch.zeros(pids.shape, dtype=col.dtype,

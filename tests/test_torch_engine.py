@@ -187,22 +187,26 @@ def test_run_sweep_calls_every_kernel_wrapper(conftest_batch, monkeypatch):
 
 @pytest.mark.parametrize("policy", ["maxmin", "mlp", "linear"])
 def test_unported_policies_raise(policy):
-    """Not-yet-ported policies keep their ids and refuse to run; maxmin,
-    once among them, is ported now and runs to the end instead."""
+    """The policies that once refused to run (maxmin, then the learned
+    mlp and linear) run to the end now; the learned ones, with the
+    reference's random weights carried across, bitwise the JAX
+    ``simulate`` on every state field (tolerance 0)."""
     eet, power, wl, mtype = make_instance(1, n_tasks=8)
-
-    def run():
-        return TE.simulate(Workload(wl.arrival, wl.type_id, wl.deadline),
-                           EETTable(eet.eet), power, mtype, policy=policy,
-                           device="cpu")
-
-    if policy == "maxmin":
-        assert policy not in TP.NOT_PORTED
-        assert bool((run().tasks.status >= TS.COMPLETED).all())
-        return
-    assert policy in TP.NOT_PORTED
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run()
+    pp = None
+    if policy != "maxmin":
+        from repro.core import neural as JN
+        pp = JN.init_params(3)
+    st = TE.simulate(Workload(wl.arrival, wl.type_id, wl.deadline),
+                     EETTable(eet.eet), power, mtype, policy=policy,
+                     device="cpu", policy_params=None if pp is None else
+                     interop.policy_params_from_numpy(
+                         JN.params_to_numpy(pp), "cpu"))
+    assert bool((st.tasks.status >= TS.COMPLETED).all())
+    if pp is not None:
+        sj = E.simulate(wl, eet, power, mtype, policy=policy,
+                        policy_params=pp)
+        _assert_bitwise(jax.tree.map(lambda x: x[None], sj), st, [0],
+                        f"policy={policy}")
 
 
 def test_policy_ids_match_reference():

@@ -112,13 +112,28 @@ def test_report_summarize_row_matches():
 
 
 def test_unported_axes_raise():
-    """A spec over learned policies, which are not ported, refuses to
-    run; arrival processes are ported now, so only an unknown one
-    raises."""
-    spec = TX.ExperimentSpec(2, TX.FleetAxis(2), TX.WorkloadAxis(4),
-                             policy=TX.PolicyAxis(("mlp",)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TX.run_experiment(spec, device="cpu")
+    """A spec over the learned policies, which once refused to run, runs
+    with shared weights (``learned=True``) and equals the reference's
+    ``run_experiment`` with the same weights: the counts exactly, the
+    float columns to the oracle suite's tolerance (the file's rule for a
+    spec's own draws); only unknown arrival processes and policies
+    raise."""
+    from repro.core import neural as JN
+    pp = JN.init_params(7)
+    jspec, tspec = (lib.ExperimentSpec(
+        4, lib.FleetAxis(3), lib.WorkloadAxis(12),
+        policy=lib.PolicyAxis(("mlp", "linear")), learned=True, seed=4)
+        for lib in (X, TX))
+    want = X.run_experiment(jspec, policy_params=pp).metrics
+    got = TX.run_experiment(tspec, device="cpu", policy_params=(
+        interop.policy_params_from_numpy(JN.params_to_numpy(pp),
+                                         "cpu"))).metrics
+    for k in COUNTS:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    for k in ("completion_rate", "makespan", "energy"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-4, err_msg=k)
     assert TX.WorkloadAxis(8, arrivals=["bursty"]).arrivals == ("bursty",)
     with pytest.raises(ValueError, match="unknown arrival generators"):
         TX.WorkloadAxis(8, arrivals=("nope",))

@@ -207,9 +207,23 @@ def test_user_policy_through_run_experiment(registry):
 
 
 def test_learned_policies_still_raise(registry):
-    batch = _jax_stack(0, [0])
-    for name in ("mlp", "linear"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            _port_sweep(batch, [TP.POLICY_IDS[name]], TE.SimParams())
+    """The learned policies keep their built-in ids beside a registered
+    user policy and run, bitwise the JAX sweep with the same stacked
+    weights (tolerance 0); an unknown id still raises."""
+    from repro.core import neural as JN
+    uid = registry.register_policy("lowest_id6", lowest_id)
+    ids = [P.POLICY_IDS["mlp"], P.POLICY_IDS["linear"]]
+    batch = _jax_stack(0, ids + [P.POLICY_IDS["mct"]])
+    pp = jax.tree.map(lambda *x: jnp.stack(x),
+                      *[JN.init_params(s) for s in (0, 3, 7)])
+    want = E.run_sweep(*batch, policy_params=pp)
+    reps = interop.replicas_from_numpy(*batch[:3], np.asarray(ids + [uid]),
+                                       device="cpu")
+    st = TE.run_sweep(reps.tasks, reps.mtype, reps.tables, reps.policy_ids,
+                      policy_params=interop.policy_params_from_numpy(
+                          JN.params_to_numpy(pp), "cpu"))
+    assert_bitwise(jax.tree.map(lambda x: x[np.array([0, 1])], want),
+                   st.take(torch.tensor([0, 1])), "mlp/linear beside a "
+                   "user policy")
     with pytest.raises(ValueError, match="unknown policy id"):
         _port_sweep(batch, [99], TE.SimParams())

@@ -69,10 +69,25 @@ def _jax_init(cfg, seed):
 
 
 def test_ref_engine_rejects_learned_policies():
+    """The port's oracle runs the learned policies now (their float32
+    numpy forward pass), equal to the reference's oracle on every field
+    with the same weights, as a numpy dict or as the port's
+    ``PolicyParams``; an unknown policy is still refused."""
+    from repro.core import neural as JN
+    from repro_torch.interop import policy_params_from_numpy
     eet, power, wl, mtype = make_instance(0)
+    args = (wl.arrival, wl.type_id, wl.deadline, eet.eet, power, mtype)
+    for policy, seed in (("mlp", 2), ("linear", 5)):
+        d = JN.params_to_numpy(JN.init_params(seed))
+        want = R.simulate_ref(*args, policy=policy, policy_params=d)
+        for pp in (d, policy_params_from_numpy(d, "cpu")):
+            got = TR.simulate_ref(*args, policy=policy, policy_params=pp)
+            for f in dataclasses.fields(TR.RefResult):
+                np.testing.assert_array_equal(getattr(got, f.name),
+                                              getattr(want, f.name),
+                                              err_msg=f"{policy} {f.name}")
     with pytest.raises(ValueError, match="unported policy"):
-        TR.simulate_ref(wl.arrival, wl.type_id, wl.deadline, eet.eet, power,
-                        mtype, policy="mlp")
+        TR.simulate_ref(*args, policy="nope")
 
 
 def _apps(cls):

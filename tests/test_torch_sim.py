@@ -151,8 +151,22 @@ def test_run_grouped_sweep_refusals():
         scenario=TX.ScenarioAxis()), device="cpu")
     with pytest.raises(ValueError, match="only supports flat replicas"):
         TS.run_grouped_sweep(reps)
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        TS.run_grouped_sweep(reps.legacy()[:4], policy_params=object())
+    # the learned policies, once refused, group like any other: shared
+    # weights, bitwise the reference's grouped sweep (tolerance 0 on the
+    # counts; exact-product replicas, so the floats too)
+    from repro.core import neural as JN
+    from repro.launch import experiment as X
+    legacy = _exact(X.normalize(X.ExperimentSpec(
+        6, X.FleetAxis(3), X.WorkloadAxis(10),
+        policy=X.PolicyAxis(("mlp", "mct", "linear")), seed=1)).legacy())
+    pp = JN.init_params(5)
+    want = JS.run_grouped_sweep(legacy, policy_params=pp)
+    got = TS.run_grouped_sweep(
+        interop.replicas_from_numpy(*legacy, device="cpu").legacy(),
+        policy_params=interop.policy_params_from_numpy(
+            JN.params_to_numpy(pp), "cpu"))
+    for k in want:
+        assert _np(got[k]).tobytes() == np.asarray(want[k]).tobytes(), k
 
 
 def test_trace_replica_rows_bitwise_jax(fresh_warnings):
@@ -216,8 +230,13 @@ def test_deprecated_sweep_shims(name, fresh_warnings):
     for k, col in out.items():
         assert torch.equal(col, want.metrics[k]), k
     if name != "build_traced_sweep":
-        with pytest.raises(NotImplementedError, match="queue A item 14"):
-            getattr(TS, name)(12, 4, learned=True)
+        # learned=True takes the weights last (the reference's order);
+        # the heuristics of these replicas ignore them
+        from repro_torch.core import neural as TN
+        pp = TN.init_params(1, device="cpu")
+        out = getattr(TS, name)(12, 4, learned=True)(*reps.legacy(), pp)
+        for k, col in out.items():
+            assert torch.equal(col, want.metrics[k]), k
 
 
 def test_workflow_sweep_shims(fresh_warnings):

@@ -482,6 +482,19 @@ def test_entry_points_default_to_cuda():
                             window=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TST.make_stream(TW.Workload(wl.arrival, wl.type_id, wl.deadline), 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _simulate(wl, eet, power, mtype, "mlp", window=4)
+    # the learned policies, once refused, stream too: with the
+    # reference's weights, the aggregates bitwise the JAX streaming run
+    from repro.core import neural as JN
+    pp = JN.init_params(4)
+    got = _simulate(wl, eet, power, mtype, "mlp", window=4,
+                    policy_params=interop.policy_params_from_numpy(
+                        JN.params_to_numpy(pp), "cpu")).agg
+    want = ST.simulate_stream(wl, eet, power, mtype, "mlp", window=4,
+                              lcap=3, policy_params=pp).agg
+    for f in dataclasses.fields(got):
+        if f.name != "metrics":
+            np.testing.assert_array_equal(
+                getattr(got, f.name).numpy()[0],
+                np.asarray(getattr(want, f.name)), err_msg=f.name)
+    assert int(got.retired[0]) == 8
     assert TS.INT_MAX == TST.INT_MAX
