@@ -12,21 +12,28 @@
     python3 chip_smoke.py --paths learned,es
     python3 chip_smoke.py --paths learned,es --learned-replicas 512 \
         --es-generations 2                                         # short
+    python3 chip_smoke.py --paths serve_gemma --serve-tiny         # short
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
-  2. build: nvcc builds the three CUDA libraries from
+  2. build: nvcc builds the four CUDA libraries from
      ``src/repro_torch/kernels/csrc``, one nvcc each, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card:
      the five scheduling kernels bitwise, on random and edge-case inputs
      (both layouts of ``masked_argmin``, ``fused_minmin``,
      ``fused_maxmin`` and ``fused_start_pick``), each case launched twice
-     and the two results bitwise equal;
+     and the two results bitwise equal; the learned policies'
+     multiply-add (``fma``) bitwise its plain version on the card and on
+     the CPU, on the forward pass's broadcast shapes at R = 4096, signed
+     zeros, subnormal results and the queue C probe (a product below half
+     an ulp of the sum);
      flash attention at atol = rtol = 2e-5 (f32) / 2e-2 (bf16) and the
      grouped matmul at atol = 2e-5 D, rtol = 2e-5 (f32) / 2e-2 D, 2e-2
      (bf16) with its padding rows exactly 0 (the tolerances of
      ``tests/test_kernels.py``), each model-kernel case launched twice
-     and the two results bitwise equal;
+     and the two results bitwise equal; flash attention also at the
+     serve_gemma path's shapes, f32 16 x 2048 x 256 causal with window
+     1024 and 10 x 2048 x 256 causal with window 2048;
   4. main paths, each driven through its entry point with the launch
      counts set to 0 just before it and read just after, every kernel of
      the path launched, and kernel inputs captured from the run
@@ -80,8 +87,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  replicas x 1024 tasks x 32 machines with
                  ``PolicyAxis(("mlp", "linear"))`` and shared random
                  weights (``neural.init_params(0)``, drawn on the host):
-                 the path launches ``masked_argmin``, ``fused_start_pick``
-                 and ``fused_event_bounds``, and every task ends terminal;
+                 the path launches ``masked_argmin``, ``fused_start_pick``,
+                 ``fused_event_bounds`` and ``fma`` (every multiply-add of
+                 the features and the forward pass), and every task ends
+                 terminal;
        es        ``learn.train_and_evaluate`` at the repo's documented
                  full configuration (24 training and 24 held-out
                  scenarios, 64 tasks x 8 machines, pop 12), generations
@@ -90,7 +99,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  (counted), then the scoreboard of the nine baselines and
                  the trained ``mlp`` (ten rows) in one sweep, written
                  with its SVG under ``build/learned/``; every scheduling
-                 kernel launched (the baselines run Min-Min and Max-Min);
+                 kernel launched (the baselines run Min-Min and Max-Min),
+                 ``fma`` too;
        serve     ``ServingEngine(run_mode="real")``, ee_mct over 4
                  machines of 2 types, 8 Poisson requests of two apps:
                  qwen2-1.5b as published (28 layers) and deepseek-moe-16b
@@ -99,7 +109,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  prompt 1024 and 32 generated tokens; every request
                  completes and each model kernel launches exactly as
                  often as the shapes imply;
-  5. card vs CPU: a 64 x 128 x 8 flat sweep, scenario sweep, workflow
+       serve_gemma  the same engine, fleet and policy serving
+                 gemma3-12b and recurrentgemma-2b as published (48
+                 layers, 5 local : 1 global, window 1024, QK-norm and
+                 sandwich norms; 26 layers, 8 cycles of (rec, rec, local)
+                 and 2 ``rec`` layers, window 2048), random f32 weights
+                 (some 47 and 11 GB, drawn after the serve path's are
+                 freed), 8 Poisson requests, prompt 2048 (past gemma's
+                 window) and 32 generated tokens (both rings wrap); every
+                 request completes and flash attention launches once per
+                 attention layer of each prefill;
+  5. card vs CPU (run last, after phase 6, so that no timed or profiled
+     window shares the card or the host with it; phase 6 read lost
+     profiler records when it ran after this phase): a
+     64 x 128 x 8 flat sweep, scenario sweep, workflow
      sweep (all four DAG shapes) and flat sweep at K = 8 on the card and
      on the CPU must give bitwise-equal final states and summaries; with
      the stream path, the streaming flat spec at W = 32 (overflow) and
@@ -128,23 +151,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      bitwise ``mct``; with the es path, one ES generation at pop 3 on a
      4-scenario grid, its fitness values, theta' and best theta bitwise
      equal to the CPU's; the
-     tiny configurations of both apps through the same
-     ``ServingEngine`` on both, the card teacher-forced with the CPU's
-     tokens, must agree on every logit to atol = rtol = 1e-4 and on the
-     greedy token wherever the CPU's top-2 margin exceeds 1e-3;
+     tiny configurations of both apps of each serving path through the
+     same ``ServingEngine`` on both (a prompt of 40 past the tiny window
+     of 16, 6 tokens past the ring's wrap), the card teacher-forced with
+     the CPU's tokens, must agree on every logit to atol = rtol = 1e-4
+     and on the greedy token wherever the CPU's top-2 margin exceeds
+     1e-3;
   6. timings: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call, on the inputs of the
      captured main-path call with the most work, rotated over copies
      larger than the L2 cache: device time (profiler) and stream time
      (CUDA events), beside the least time the card could take for that
-     call's data (see ``bound`` and ``model_bound``); for the scheduling
-     kernels also the host time per call of each wrapper (5 rounds of 1000
-     calls, no synchronisation) and the launch floor: an empty kernel at
-     the kernel's grid, timed the same ways.
+     call's data (see ``bound``, ``model_bound`` and ``fma_bound``; the
+     model kernels' row also lists every captured call); for the
+     scheduling kernels also the host time per call of each wrapper (5
+     rounds of 1000 calls, no synchronisation) and the launch floor: an
+     empty kernel at the kernel's grid, timed the same ways.
 After 4 a profiled window of each path (the sweeps' first 32 event
 steps, the workflow path's first 8, the chunked path's at 2048 replicas
 in two chunks of 1024 with their normalization, the learned path's
-first 32; one request of each app)
+first 32; one request of each app, one app at a time)
 gives the device's busy and idle share.
 The workflow path's fork-join and map-reduce shapes run only in phase 5:
 at 1024 tasks they pad every parent table to K = 1022 (17 GB at 4096
@@ -193,13 +219,17 @@ CHUNKED_PROFILE = (2048, 1024)   # the chunked profile's replicas, chunk
 # the workflow path's first 32 steps launch some 670000 device
 # activities, whose profiler records take 2.5 min to read: 8 steps
 WORKFLOW_PROFILE_STEPS = 8
-ALL_PATHS = PATHS + ("serve",)
+PROFILE_TRIES = 3      # profiled serving windows a request, at most
+SERVE_PATHS = ("serve", "serve_gemma")     # the model paths
+ALL_PATHS = PATHS + SERVE_PATHS
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32X3_OPS_PER_S = 495e12 / 3  # f32 products as 3xTF32 on the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 SECTOR = 32                   # bytes the memory system moves at least
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sched_argmin.cu"
+FMA_SOURCE = "src/repro_torch/kernels/csrc/fma.cu"
+FMA_PATHS = ("learned", "es")   # the paths whose forward pass launches fma
 MODEL_KERNELS = ("flash_attention", "grouped_matmul")
 MODEL_SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 REPLACES = {
@@ -210,6 +240,9 @@ REPLACES = {
     "fused_maxmin": "src/repro/kernels/sched_argmin.py:427",
     "fused_start_pick": "src/repro/kernels/sched_argmin.py:315",
     "fused_event_bounds": "src/repro/kernels/sched_argmin.py:388",
+    # no Pallas kernel: XLA's fused multiply-adds of the learned forward
+    # pass (mlp_scores; linear_scores at :203, the features at :163)
+    "fma": "src/repro/core/neural.py:197",
 }
 CAPTURE_AT = (1, 40, 400, 4000)
 
@@ -438,6 +471,83 @@ def check_kernels(K, KREF, dev) -> dict:
     return errs
 
 
+def fma_cases(dev):
+    """(label, (x, w, acc)) cases of the multiply-add kernel: the forward
+    pass's broadcast shapes at the learned path's width (R = 4096, M =
+    32, H = 16), strided views, the queue C probe (a product below half
+    an ulp of acc, which a float64 sum rounded twice gets wrong), signed
+    zeros and subnormal results."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    x = np.float32(2**-12 * (1 + 2**-18))
+    w = np.float32(2**-12 * (1 - 2**-18))
+    acc = np.float32(1 + 2**-23)
+    feats = rnd(4096, 32, 9)
+    hid = rnd(4096, 32, 16)
+    return [
+        ("chain (R, M, 1) x (H,) + (R, M, H)",
+         (feats[..., 3, None], rnd(16), rnd(4096, 32, 16))),
+        ("shared lanes (R, M, 4, 1) x (4, H) + (R, M, 4, H)",
+         (feats[..., 4:8, None], rnd(4, 16), rnd(4096, 32, 4, 16))),
+        ("batched lanes (R, M, 8) x (R, 1, 8) + (R, M, 8)",
+         (hid[..., 8:16], rnd(4096, 1, 8), rnd(4096, 32, 8))),
+        ("features (R,) x (R,) + (R,)", (rnd(4096), rnd(4096), rnd(4096))),
+        ("queue C probe, broadcast to (R, M)",
+         (torch.full((4096, 1), float(x), device=dev),
+          torch.full((32,), float(w), device=dev),
+          torch.full((4096, 32), float(acc), device=dev))),
+        ("signed zeros",
+         (torch.tensor([0.0, -0.0, 1.0, -1.0], device=dev),
+          torch.tensor([1.0, 1.0, -0.0, 0.0], device=dev),
+          torch.tensor([-0.0, -0.0, -0.0, 0.0], device=dev))),
+        ("subnormal results", (rnd(8, 1000, scale=1e-20),
+                               rnd(1000, scale=1e-19),
+                               rnd(8, 1000, scale=1e-38))),
+    ]
+
+
+def check_fma(FMA, KREF, dev) -> float:
+    """Each case on the card twice (bitwise equal), against the plain
+    version on the card and on the CPU (the CPU twin), bitwise; then a
+    call past the kernel's 32-bit indices, which must be refused."""
+    from repro_torch.kernels import build
+    err = 0.0
+    for label, args in fma_cases(dev):
+        got = FMA.fma(*args)
+        again = FMA.fma(*args)
+        torch.cuda.synchronize()
+        compare(f"fma {label}, second launch", (again,), (got,))
+        err = max(err, compare(f"fma {label}", (got,),
+                               (KREF.fma_ref(*args),)))
+        cpu = KREF.fma_ref(*(a.cpu() for a in args))
+        compare(f"fma {label}, the CPU twin", (got.cpu(),), (cpu,))
+        log("3 kernels", f"fma {label} {tuple(got.shape)}: bitwise equal to "
+            f"the plain version on the card and on the CPU, twice")
+    probe = FMA.fma(*fma_cases(dev)[4][1])
+    if float(probe[0, 0]) != float(np.float32(1 + 2**-23)):
+        raise AssertionError(f"fma: the probe gives {float(probe[0, 0])!r}")
+    # past 2^31 elements the wrapper raises and the launcher refuses
+    x, w = (torch.ones(s, device=dev) for s in ((2**16, 1), (1, 2**16)))
+    before = FMA.launches["fma"]
+    try:
+        FMA.fma(x, w, x[0])
+        raise AssertionError("fma: 2^32 elements were not refused")
+    except ValueError:
+        pass
+    code = build.load("fma").e2c_fma(
+        x.data_ptr(), w.data_ptr(), x.data_ptr(), x.data_ptr(),
+        FMA.geometry(torch.Size([2**16, 2**16]), x, w, x[0]),
+        torch.cuda.current_stream().cuda_stream)
+    if code == 0 or FMA.launches["fma"] != before:
+        raise AssertionError("fma: the launcher took 2^32 elements")
+    log("3 kernels", "fma refuses 2^32 elements: the wrapper raises, the "
+        f"launcher returns {build.load('fma').e2c_error_string(code)!r}")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -472,17 +582,21 @@ def bitwise_equal(got: dict, want: dict, what: str) -> None:
 @contextlib.contextmanager
 def capturing(K, at):
     """Within the block, each kernel wrapper of ``K`` clones its inputs
-    at the calls numbered in ``at`` (1-based, per wrapper) into the
-    yielded ``{name: [(call, args, kwargs), ...]}``."""
+    at the calls numbered in ``at`` (1-based, per wrapper; ``None``: the
+    first call of each distinct tuple of input shapes) into the yielded
+    ``{name: [(call, args, kwargs), ...]}``."""
     captured = {name: [] for name in K.NAMES}
     originals = {name: getattr(K, name) for name in K.NAMES}
 
     def wrap(name, fn):
-        count = [0]
+        count, seen = [0], set()
 
         def wrapped(*args, **kw):
             count[0] += 1
-            if count[0] in at:
+            key = None if at is not None else tuple(
+                tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+            if (count[0] in at) if at is not None else key not in seen:
+                seen.add(key)
                 captured[name].append((count[0], tuple(
                     a.clone() if isinstance(a, torch.Tensor) else a
                     for a in args), dict(kw)))
@@ -605,9 +719,11 @@ def check_workflow(S, reps, st) -> tuple[int, int]:
 
 def run_main(X, E, K, S, ST, P, dev, path, n_rep, n_tasks, n_mach):
     """Drive one main path through ``run_experiment``, the launch counts
-    set to 0 just before and read just after; returns the result, the
-    launches, the inputs captured from the run, the loop counters, the
-    execute seconds and the path's own peak device memory in GiB."""
+    (the scheduling kernels' and the multiply-add's) set to 0 just before
+    and read just after; returns the result, the launches, the inputs
+    captured from the run, the loop counters, the execute seconds and the
+    path's own peak device memory in GiB."""
+    from repro_torch.kernels import fma as FMA
     phase = f"4 {path}"
     spec = make_spec(X, E, path, n_rep, n_tasks, n_mach)
     held = torch.cuda.memory_allocated() / 2**30
@@ -619,15 +735,18 @@ def run_main(X, E, K, S, ST, P, dev, path, n_rep, n_tasks, n_mach):
     stats = E.RunStats()
     torch.cuda.reset_peak_memory_stats()
     with capturing(K, CAPTURE_AT) as captured, \
+            capturing(FMA, None) as fma_captured, \
             counting_syncs({"run_stream": (ST, "run_stream"),
                             "Plan.make": (P.Plan, "make")}) as syncs:
         K.reset_launches()
+        FMA.reset_launches()
         t0 = time.perf_counter()
         res = X.run_experiment(spec, device=dev, replicas=reps, stats=stats,
                                policy_params=path_weights(path))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(K.launches)
+        launches = {**K.launches, **FMA.launches}
+    captured.update(fma_captured)
     for row in res.by_policy(("completion_rate", "missed", "cancelled",
                               "preempted", "requeues", "availability",
                               "energy", "makespan", "mean_response")):
@@ -647,7 +766,8 @@ def run_main(X, E, K, S, ST, P, dev, path, n_rep, n_tasks, n_mach):
             f"mean availability "
             f"{float(res.metrics['availability'].mean()):.4f}")
     log(phase, f"kernel launches {json.dumps(launches)}")
-    for name in PATH_KERNELS.get(path, K.NAMES):
+    for name in PATH_KERNELS.get(path, K.NAMES) \
+            + (FMA.NAMES if path in FMA_PATHS else ()):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the {path} path")
     if path == "stream":
@@ -837,6 +957,7 @@ def run_chunked(X, E, K, P, dev, n_rep, chunk, n_tasks, n_mach, flat):
 
 
 def recheck_captured(K, KREF, captured, path) -> None:
+    from repro_torch.kernels import fma as FMA
     for name in K.NAMES:
         for call, args, kw in captured[name]:
             got = getattr(K, name)(*args, **kw)
@@ -844,6 +965,12 @@ def recheck_captured(K, KREF, captured, path) -> None:
             compare(f"{name} {path} call {call}", got, want)
             log("3 kernels", f"{name} captured at {path}-path call {call}: "
                 "bitwise equal")
+    for call, args, _ in captured.get("fma", ()):
+        got = FMA.fma(*args)
+        compare(f"fma {path} call {call}", (got.cpu(),),
+                (KREF.fma_ref(*(a.cpu() for a in args)),))
+        log("3 kernels", f"fma captured at {path}-path call {call} "
+            f"{tuple(got.shape)}: bitwise equal to the CPU twin")
 
 
 def trace_fields(st) -> dict:
@@ -1134,6 +1261,7 @@ def run_es(E, K, dev, generations: int):
     counted and timed.  Returns the launches, the captured kernel inputs,
     the execute seconds and the path's own peak device memory in GiB."""
     from repro_torch.core import train_policy as TP
+    from repro_torch.kernels import fma as FMA
     from repro_torch.launch import learn as L
     phase = "4 es"
     cfg = TP.ESConfig(pop=ES_POP, generations=generations)
@@ -1153,14 +1281,17 @@ def run_es(E, K, dev, generations: int):
     torch.cuda.reset_peak_memory_stats()
     E.run_sweep = timed
     try:
-        with capturing(K, CAPTURE_AT) as captured:
+        with capturing(K, CAPTURE_AT) as captured, \
+                capturing(FMA, None) as fma_captured:
             K.reset_launches()
+            FMA.reset_launches()
             t0 = time.perf_counter()
             payload = L.train_and_evaluate(cfg=cfg, out_dir=out_dir,
                                            device=dev, **ES_GRID)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = dict(K.launches)
+            launches = {**K.launches, **FMA.launches}
+        captured.update(fma_captured)
     finally:
         E.run_sweep = real
     peak = torch.cuda.max_memory_allocated() / 2**30 - held
@@ -1191,7 +1322,7 @@ def run_es(E, K, dev, generations: int):
             raise AssertionError(f"es: a scoreboard row is not finite: {r}")
     log(phase, f"kernel launches {json.dumps(launches)}; scoreboard and "
         f"its SVG written to {os.path.relpath(out_dir, ROOT)}/")
-    for name in PATH_KERNELS.get("es", K.NAMES):
+    for name in PATH_KERNELS.get("es", K.NAMES) + FMA.NAMES:
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the es path")
     return launches, captured, wall, peak
@@ -1421,13 +1552,15 @@ def host_us(fn, args, kw) -> list:
 
 
 def device_activity(prof) -> list:
-    """(name, start_us, end_us) of every device activity a profile saw."""
+    """(name, start_us, end_us) of every device activity a profile saw.
+    Read from the profiler's raw event records: building its
+    ``FunctionEvent`` tree (``prof.events()``) takes some 80 us of host
+    time an event, minutes for a window of a few 100000 activities."""
     from torch.autograd import DeviceType
-    out = []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            out.append((e.name, e.time_range.start, e.time_range.end))
-    return out
+    return [(e.name(), e.start_ns() / 1e3,
+             (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
 
 
 def device_ms(fn, sets, kw) -> float:
@@ -1607,6 +1740,63 @@ def timings(K, KREF, build, launches, captured, errs, paths=PATHS) -> list:
     return rows
 
 
+def fma_bound(args) -> tuple[float, str, int, int]:
+    """The least time for one multiply-add call: each operand's elements
+    read once and the output written once, over the HBM rate, against
+    one multiply and one add an output element over the float32 rate.
+    Returns (ms, "bytes" or "operations", bytes, operations)."""
+    n = torch.broadcast_shapes(*(a.shape for a in args)).numel()
+    moved = nbytes(*args) + 4 * n
+    ops = 2 * n
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    if by_ops > by_bytes:
+        return by_ops, "operations", moved, ops
+    return by_bytes, "bytes", moved, ops
+
+
+def fma_timings(FMA, KREF, launches, captured, err, paths) -> dict:
+    """The kernels-JSON row of the multiply-add, timed on the captured
+    call (learned and es paths) with the most output elements: kernel,
+    plain version and ``torch.addcmul`` (one PyTorch call computing
+    ``acc + x * w``)."""
+    caps = [(f"{p} {call}", args) for p in paths if p in FMA_PATHS
+            for call, args, _ in captured[p].get("fma", ())]
+    if not caps:
+        raise AssertionError("no captured main-path input for fma")
+    call, args = max(caps, key=lambda c: fma_bound(c[1])[3])
+    saved = dict(FMA.launches)
+    sets = cold_sets(args)
+    res = {"stream_ms": time_ms(FMA.fma, sets, {}),
+           "ms": device_ms(FMA.fma, sets, {}),
+           "plain_ms": device_ms(KREF.fma_ref, sets, {}),
+           "library_ms": device_ms(
+               lambda x, w, acc: torch.addcmul(acc, x, w), sets, {})}
+    del sets
+    host = float(np.median(host_us(FMA.fma, args, {})))
+    FMA.launches.update(saved)
+    if res["ms"] <= 0.0 or res["plain_ms"] <= 0.0:
+        raise AssertionError("fma: the profiler saw no device time")
+    bound_ms, bound_by, moved, ops = fma_bound(args)
+    shape = ", ".join("x".join(map(str, a.shape)) for a in args)
+    log("6 timings", f"fma at the main path's {shape} (call {call}), inputs "
+        f"cold in L2: device time per call (profiler) kernel "
+        f"{res['ms']:.5f} ms, plain {res['plain_ms']:.5f} ms, library "
+        f"(addcmul) {res['library_ms']:.5f} ms; stream time kernel "
+        f"{res['stream_ms']:.5f} ms; host time per wrapper call {host:.2f} "
+        f"us; bound {bound_ms:.5f} ms by {bound_by} ({moved} bytes, {ops} "
+        f"operations); {gpu_line()}")
+    return {"name": "fma", "route": "cuda", "source": FMA_SOURCE,
+            "replaces": REPLACES["fma"],
+            "launches": sum(launches[p].get("fma", 0) for p in paths),
+            **{f"launches_{p}": launches[p]["fma"] for p in paths
+               if p in FMA_PATHS},
+            "max_abs_err": err, "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": res["library_ms"],
+            "stream_ms": res["stream_ms"], "host_us": host}
+
+
 def profile_window(X, E, K, dev, path, n_rep, n_tasks, n_mach, steps=32,
                    chunk=None):
     """A main path's first ``steps`` event steps at full width, under
@@ -1752,7 +1942,12 @@ def model_kernel_cases(dev):
                 (2, 50, 50, 37, {"causal": True},
                  "hd 37: rows not 16-byte multiples"),
                 (12, 1024, 1024, 128, {"causal": True},
-                 "qwen2-1.5b prefill shape")):
+                 "qwen2-1.5b prefill shape"),
+                *(((16, 2048, 2048, 256, {"causal": True, "window": 1024},
+                    "gemma3-12b local prefill, S = 2048 > window"),
+                   (10, 2048, 2048, 256, {"causal": True, "window": 2048},
+                    "recurrentgemma-2b local prefill, window = S"))
+                  if dtype == torch.float32 else ())):
             cases.append(("flash_attention", f"{dn} {what} {bh}x{sq}x{sk}x"
                           f"{hd}", (rnd(bh, sq, hd), rnd(bh, sk, hd),
                                     rnd(bh, sk, hd)), kw))
@@ -1852,10 +2047,22 @@ SERVE_POWER = np.array([[50.0, 200.0], [30.0, 120.0]], np.float32)
 SERVE_MTYPES = (0, 0, 1, 1)
 
 
-def serve_archs(tiny: bool):
-    """qwen2-1.5b as published and deepseek-moe-16b at its published
-    widths cut to 8 layers (1 dense + 7 MoE); their tiny forms."""
+SERVE_SHAPES = {"serve": (1024, 32), "serve_gemma": (2048, 32)}
+SERVE_TINY_SHAPE = (40, 6)    # prompt past the tiny window of 16
+
+
+def serve_archs(path: str, tiny: bool):
+    """The two apps of a serving path.  ``serve``: qwen2-1.5b as
+    published and deepseek-moe-16b at its published widths cut to 8
+    layers (1 dense + 7 MoE).  ``serve_gemma``: gemma3-12b and
+    recurrentgemma-2b as published (48 layers; 26 layers, 8 cycles of
+    (rec, rec, local) and 2 ``rec`` layers).  Tiny forms: the configs'
+    ``tiny()``, recurrentgemma cut to 8 layers so that its stack keeps a
+    suffix."""
     from repro_torch.configs.base import get_arch
+    if path == "serve_gemma":
+        gemma, rg = get_arch("gemma3-12b"), get_arch("recurrentgemma-2b")
+        return (gemma.tiny(), rg.tiny(n_layers=8)) if tiny else (gemma, rg)
     qwen, ds = get_arch("qwen2-1.5b"), get_arch("deepseek-moe-16b")
     if tiny:
         return qwen.tiny(), ds.tiny()
@@ -1892,14 +2099,14 @@ def n_params(tree) -> int:
 
 
 def expected_launches(apps, type_ids) -> dict:
-    """Launches the shapes imply: one flash attention per layer of a
-    prefill, two grouped matmuls per MoE layer of a prefill and of each
-    of the ``gen_len`` decode steps."""
+    """Launches the shapes imply: one flash attention per attention layer
+    (all but ``rec``) of a prefill, two grouped matmuls per MoE layer of
+    a prefill and of each of the ``gen_len`` decode steps."""
     out = dict.fromkeys(MODEL_KERNELS, 0)
     for t in type_ids:
         app = apps[int(t)]
         kinds = app.arch.kinds()
-        out["flash_attention"] += len(kinds)
+        out["flash_attention"] += len(kinds) - kinds.count("rec")
         out["grouped_matmul"] += 2 * kinds.count("moe") * (1 + app.gen_len)
     return out
 
@@ -1954,15 +2161,15 @@ def serve_hooks(M, mods):
             setattr(mods[name], name, fn)
 
 
-def run_serve(mods, dev, tiny: bool, n_requests: int = 8):
-    """Drive the serving path once through ``ServingEngine.run``, the
+def run_serve(mods, dev, path: str, tiny: bool, n_requests: int = 8):
+    """Drive serving path ``path`` once through ``ServingEngine.run``, the
     model kernels' launch counts set to 0 just before and read just
     after; returns the apps, the launches and the captured inputs."""
     from repro_torch.models import model as M
     from repro_torch.serving import ServeConfig, ServingEngine
-    phase = "4 serve"
-    prompt_len, gen_len = (40, 6) if tiny else (1024, 32)
-    cfgs = serve_archs(tiny)
+    phase = f"4 {path}"
+    prompt_len, gen_len = SERVE_TINY_SHAPE if tiny else SERVE_SHAPES[path]
+    cfgs = serve_archs(path, tiny)
     t0 = time.perf_counter()
     apps = serve_apps(cfgs, dev, prompt_len, gen_len)
     torch.cuda.synchronize()
@@ -1993,12 +2200,14 @@ def run_serve(mods, dev, tiny: bool, n_requests: int = 8):
     log(phase, json.dumps(rep.row()))
     log(phase, f"{rep.completed} of {rep.n_requests} requests completed, "
         f"{rep.tokens_generated} tokens generated in {wall:.3f} s "
-        f"(synchronised); peak device memory {peak:.2f} GiB; {gpu_line()}")
+        f"(synchronised); peak device memory {peak:.2f} GiB (both apps' "
+        f"weights, caches and activations); {gpu_line()}")
     for app in apps:
         t = times.get(app.name)
         if t is None:
             raise AssertionError(f"{app.name} served no request")
-        log(phase, f"{app.name}: prefill {1e3 * np.mean(t['prefill']):.2f} "
+        log(phase, f"{app.name}: {len(t['prefill'])} of {rep.completed} "
+            f"completed requests; prefill {1e3 * np.mean(t['prefill']):.2f} "
             f"ms a request over {len(t['prefill'])} requests of "
             f"{prompt_len} tokens, decode "
             f"{1e3 * np.mean(t['decode_step']):.3f} ms a token over "
@@ -2023,75 +2232,99 @@ def run_serve(mods, dev, tiny: bool, n_requests: int = 8):
     return apps, launches, captured
 
 
-def recheck_model_captured(mods, captured) -> dict:
+def recheck_model_captured(mods, captured, path) -> dict:
     errs = dict.fromkeys(MODEL_KERNELS, 0.0)
     for name in MODEL_KERNELS:
         for call, args, kw in captured[name]:
             shape = "x".join(map(str, args[0].shape))
             err = check_model_call(mods, name, args, kw,
-                                   f"serve call {call} ({shape})")
+                                   f"{path} call {call} ({shape})")
             errs[name] = max(errs[name], err)
-            log("3 kernels", f"{name} captured at serve-path call {call} "
-                f"({shape}): within tolerance, max abs err {err:.3g}")
+            log("3 kernels", f"{name} captured at {path}-path call {call} "
+                f"({shape} {kw}): within tolerance, max abs err {err:.3g}")
     return errs
 
 
-def profile_serve(mods, apps, dev) -> dict:
-    """One request of each app under the profiler: wall time, device
-    busy/idle share, the top device kernels, and each model kernel's
-    device time per call inside the run."""
+def lost_records(spans, n_calls: dict) -> str | None:
+    """What a profiled window lacks, or None when it holds one first
+    kernel for each wrapper call of each model kernel and one reduction
+    for each split-D kernel (the grouped matmul's decode shapes)."""
+    for kname, n in n_calls.items():
+        names = [s[0] for s in spans if kname in s[0] and "_kernel" in s[0]]
+        reduce = sum("_reduce_kernel" in x for x in names)
+        decode = sum("_decode_kernel" in x for x in names)
+        if len(names) - reduce != n or reduce != decode:
+            return (f"the profiler saw {len(names) - reduce} {kname} "
+                    f"launches for {n} calls and {reduce} reductions for "
+                    f"{decode} split-D kernels")
+    return None
+
+
+def profile_serve(mods, apps, dev, path: str) -> dict:
+    """One request of each app under the profiler, one app at a time:
+    wall time, device busy/idle share and the top device kernels of each,
+    and each model kernel's device time per call inside the runs.  A
+    window that lost device records (the profiler drops some now and
+    then) is profiled again, up to ``PROFILE_TRIES`` windows in all."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.workload import Workload
     from repro_torch.serving import ServeConfig, ServingEngine
-    phase = "4 serve profile"
-    wl = Workload(np.array([0.0, 0.1], np.float32), np.array([0, 1]),
-                  np.array([1e6, 1e6], np.float32))
-    engine = ServingEngine(SERVE_EET, SERVE_POWER, list(SERVE_MTYPES), apps,
-                           ServeConfig(policy="ee_mct", run_mode="real"),
-                           device=dev)
+    phase = f"4 {path} profile"
     saved = {name: dict(mods[name].launches) for name in MODEL_KERNELS}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.run(wl)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    n_calls = {name: mods[name].launches[name] - saved[name][name]
-               for name in MODEL_KERNELS}
+    by_name: dict = {}
+    n_calls = dict.fromkeys(MODEL_KERNELS, 0)
+    for type_id, app in enumerate(apps):
+        wl = Workload(np.array([0.0], np.float32), np.array([type_id]),
+                      np.array([1e6], np.float32))
+        for _ in range(PROFILE_TRIES):
+            engine = ServingEngine(SERVE_EET, SERVE_POWER,
+                                   list(SERVE_MTYPES), apps,
+                                   ServeConfig(policy="ee_mct",
+                                               run_mode="real"), device=dev)
+            before = {k: mods[k].launches[k] for k in MODEL_KERNELS}
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                engine.run(wl)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            calls = {k: mods[k].launches[k] - before[k]
+                     for k in MODEL_KERNELS}
+            spans = device_activity(prof)
+            lost = lost_records(spans, calls)
+            if lost is None:
+                break
+            log(phase, f"one request of {app.name}: {lost}; profiled again")
+        else:
+            raise AssertionError(f"{lost} in each of {PROFILE_TRIES} "
+                                 f"windows")
+        for k in MODEL_KERNELS:
+            n_calls[k] += calls[k]
+        busy = busy_us(spans) / 1e6
+        log(phase, f"one request of {app.name}: wall {wall:.3f} s, device "
+            f"busy {busy:.3f} s ({100 * busy / wall:.1f}%, idle "
+            f"{100 * (1 - busy / wall):.1f}%), {len(spans)} device "
+            f"activities; {gpu_line()}")
+        mine: dict = {}
+        for name, s0, e in spans:
+            tot, cnt = mine.get(name, (0.0, 0))
+            mine[name] = (tot + e - s0, cnt + 1)
+            tot, cnt = by_name.get(name, (0.0, 0))
+            by_name[name] = (tot + e - s0, cnt + 1)
+        for name, (tot, cnt) in sorted(mine.items(),
+                                       key=lambda kv: -kv[1][0])[:10]:
+            log(phase, f"{tot / 1e3:10.2f} ms {cnt:7d} x  {name[:90]}")
     for name in MODEL_KERNELS:
         mods[name].launches.update(saved[name])
-    spans = device_activity(prof)
-    busy = busy_us(spans) / 1e6
-    log(phase, f"one request of each app: wall {wall:.3f} s, device busy "
-        f"{busy:.3f} s ({100 * busy / wall:.1f}%, idle "
-        f"{100 * (1 - busy / wall):.1f}%), {len(spans)} device activities; "
-        f"{gpu_line()}")
-    by_name: dict = {}
-    for name, s, e in spans:
-        tot, cnt = by_name.get(name, (0.0, 0))
-        by_name[name] = (tot + e - s, cnt + 1)
-    for name, (tot, cnt) in sorted(by_name.items(),
-                                   key=lambda kv: -kv[1][0])[:10]:
-        log(phase, f"{tot / 1e3:10.2f} ms {cnt:7d} x  {name[:90]}")
     in_run = {}
     for kname in MODEL_KERNELS:
+        if not n_calls[kname]:
+            continue
         # every kernel a wrapper call launches (the grouped matmul's
-        # decode shapes run a split-D kernel and its reduction)
+        # decode shapes run a split-D kernel and its reduction), each
+        # window holding all of them (``lost_records``)
         hits = {n: (t, c) for n, (t, c) in by_name.items()
                 if kname in n and "_kernel" in n}
-        if not hits or not n_calls[kname]:
-            raise AssertionError(f"the profiler saw no {kname} kernel")
-        # one first kernel per call, one reduction per split-D kernel: a
-        # window that lost records would under-report the time a call
-        count = {part: sum(c for n, (_, c) in hits.items() if part in n)
-                 for part in ("_reduce_kernel", "_decode_kernel")}
-        first = sum(c for _, c in hits.values()) - count["_reduce_kernel"]
-        if first != n_calls[kname] \
-                or count["_reduce_kernel"] != count["_decode_kernel"]:
-            raise AssertionError(
-                f"the profiler saw {first} {kname} launches for "
-                f"{n_calls[kname]} calls and {count['_reduce_kernel']} "
-                f"reductions for {count['_decode_kernel']} split-D kernels")
         t = sum(h[0] for h in hits.values())
         in_run[kname] = t / n_calls[kname] / 1e3
         log(phase, f"in the main path: {n_calls[kname]} {kname} calls "
@@ -2141,20 +2374,23 @@ def recording(M, force=None):
         M.prefill, M.decode_step = orig_p, orig_d
 
 
-def serve_card_vs_cpu(dev) -> None:
-    """The tiny apps through the same ``ServingEngine`` on the CPU and on
-    the card, the card teacher-forced with the CPU's tokens."""
+def serve_card_vs_cpu(dev, path: str) -> None:
+    """The tiny apps of serving path ``path`` through the same
+    ``ServingEngine`` on the CPU and on the card, the card teacher-forced
+    with the CPU's tokens; a prompt of 40 past the tiny window of 16 and
+    6 decode steps past the ring's wrap."""
     from repro_torch.models import model as M
     from repro_torch.serving import AppSpec, ServeConfig, ServingEngine
-    cfgs = serve_archs(tiny=True)
+    cfgs = serve_archs(path, tiny=True)
+    prompt_len, gen_len = SERVE_TINY_SHAPE
     cpu_params = [M.init_params(torch.Generator().manual_seed(i), c)
                   for i, c in enumerate(cfgs)]
     wl = serve_workload(5, seed=1)
     runs = {}
     for where, params in (("cpu", cpu_params),
                           ("card", [tree_to(p, dev) for p in cpu_params])):
-        apps = [AppSpec(c.name, gen_len=6, arch=c, params=p, prompt_len=40)
-                for c, p in zip(cfgs, params)]
+        apps = [AppSpec(c.name, gen_len=gen_len, arch=c, params=p,
+                        prompt_len=prompt_len) for c, p in zip(cfgs, params)]
         engine = ServingEngine(SERVE_EET, SERVE_POWER, list(SERVE_MTYPES),
                                apps, ServeConfig(policy="ee_mct",
                                                  run_mode="real"),
@@ -2175,62 +2411,98 @@ def serve_card_vs_cpu(dev) -> None:
             if int(got[0, -1].argmax()) != int(want[0, -1].argmax()):
                 raise AssertionError(f"tiny serving {kind} {i}: greedy "
                                      "token differs")
-    log("5 card=cpu", f"tiny qwen2-1.5b + deepseek-moe-16b serving, 5 "
-        f"requests, {len(runs['cpu'])} model calls teacher-forced: every "
+    log("5 card=cpu", f"{path}: tiny {' + '.join(c.name for c in cfgs)} "
+        f"serving, 5 requests, {len(runs['cpu'])} model calls "
+        f"teacher-forced: every "
         f"logit within 1e-4 of the CPU's (max abs err {err:.3g}), greedy "
         f"tokens equal at all {compared} steps with a top-2 margin > 1e-3")
 
 
 def model_timings(mods, launches, captured, errs, in_run) -> list:
-    """One kernels-JSON row per model kernel, timed on its captured call
-    with the most work; every captured call is timed and logged."""
+    """One kernels-JSON row per model kernel; ``launches``, ``captured``
+    and ``in_run`` map each serving path run to its counts, captured
+    inputs and in-run device times.  Every captured call is timed and
+    logged (and listed in the row's ``calls``); the row's times are
+    those of the call with the most work."""
     rows = []
     for name in MODEL_KERNELS:
         mod = mods[name]
         kernel, plain = getattr(mod, name), getattr(mod, name + "_ref")
         results = []
-        for call, args, kw in captured[name]:
-            saved = dict(mod.launches)
-            sets = cold_sets(args)
-            lib = library_call(name, kw)
-            res = {"call": call, "stream_ms": time_ms(kernel, sets, kw),
-                   "ms": device_ms(kernel, sets, kw),
-                   "plain_ms": device_ms(plain, sets, kw),
-                   "library_ms": None if lib is None
-                   else device_ms(lib, sets, kw)}
-            del sets
-            mod.launches.update(saved)
-            if res["ms"] <= 0.0 or res["plain_ms"] <= 0.0:
-                raise AssertionError(f"{name}: the profiler saw no device "
-                                     "time")
-            res["bound_ms"], res["bound_by"], moved, ops = model_bound(
-                name, args, kw)
-            shape = ", ".join("x".join(map(str, a.shape)) for a in args)
-            lib_s = "n/a" if res["library_ms"] is None \
-                else f"{res['library_ms']:.5f} ms"
-            log("6 timings", f"{name} at the serve path's {shape} {kw} "
-                f"(call {call}), inputs cold in L2: device time per call "
-                f"(profiler) kernel {res['ms']:.5f} ms, plain "
-                f"{res['plain_ms']:.5f} ms, library {lib_s}; stream time "
-                f"kernel {res['stream_ms']:.5f} ms; bound "
-                f"{res['bound_ms']:.5f} ms by {res['bound_by']} ({moved} "
-                f"bytes, {ops} operations); {gpu_line()}")
-            results.append((ops, res))
+        for path in captured:
+            for call, args, kw in captured[path][name]:
+                saved = dict(mod.launches)
+                sets = cold_sets(args)
+                lib = library_call(name, kw)
+                res = {"path": path, "call": call,
+                       "shape": [list(a.shape) for a in args], "kw": kw,
+                       "stream_ms": time_ms(kernel, sets, kw),
+                       "ms": device_ms(kernel, sets, kw),
+                       "plain_ms": device_ms(plain, sets, kw),
+                       "library_ms": None if lib is None
+                       else device_ms(lib, sets, kw)}
+                del sets
+                mod.launches.update(saved)
+                if res["ms"] <= 0.0 or res["plain_ms"] <= 0.0:
+                    raise AssertionError(f"{name}: the profiler saw no "
+                                         "device time")
+                res["bound_ms"], res["bound_by"], moved, ops = model_bound(
+                    name, args, kw)
+                shape = ", ".join("x".join(map(str, a.shape)) for a in args)
+                lib_s = "n/a" if res["library_ms"] is None \
+                    else f"{res['library_ms']:.5f} ms"
+                log("6 timings", f"{name} at the {path} path's {shape} {kw} "
+                    f"(call {call}), inputs cold in L2: device time per call "
+                    f"(profiler) kernel {res['ms']:.5f} ms, plain "
+                    f"{res['plain_ms']:.5f} ms, library {lib_s}; stream "
+                    f"time kernel {res['stream_ms']:.5f} ms; bound "
+                    f"{res['bound_ms']:.5f} ms by {res['bound_by']} "
+                    f"({moved} bytes, {ops} operations); {gpu_line()}")
+                results.append((ops, res))
         if not results:
-            raise AssertionError(f"no captured main-path input for {name}")
+            if any(n[name] for n in launches.values()):
+                raise AssertionError(f"no captured main-path input for "
+                                     f"{name}")
+            continue        # a short call whose paths do not run it
         res = max(results, key=lambda r: r[0])[1]
         rows.append({"name": name, "route": "cuda",
                      "source": MODEL_SOURCE.format(name),
                      "replaces": REPLACES[name],
-                     "launches": launches[name], "launches_serve":
-                     launches[name], "max_abs_err": errs[name],
+                     "launches": sum(n[name] for n in launches.values()),
+                     **{f"launches_{p}": n[name]
+                        for p, n in launches.items()},
+                     "max_abs_err": errs[name],
                      "ms": res["ms"], "plain_ms": res["plain_ms"],
                      "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"],
                      "library_ms": res["library_ms"],
                      "stream_ms": res["stream_ms"],
-                     "in_run_ms": in_run[name]})
+                     **{f"in_run_ms_{p}": t[name]
+                        for p, t in in_run.items() if name in t},
+                     "calls": [r for _, r in results]})
     return rows
+
+
+def card_vs_cpu_phase(X, E, K, P, dev, sweeps, paths) -> None:
+    """Phase 5: every card-vs-CPU comparison of the paths driven."""
+    for path in sweeps:
+        if path == "stream":
+            stream_card_vs_cpu(X, E, dev)
+        elif path == "chunked":
+            chunked_card_vs_cpu(X, E, dev)
+        elif path == "learned":
+            learned_card_vs_cpu(X, E, dev)
+        elif path == "es":
+            es_card_vs_cpu(dev)
+        else:
+            card_vs_cpu(X, E, dev, path)
+    if "traced" in sweeps:
+        for path in ("flat", "workflow"):
+            card_vs_cpu(X, E, dev, path, traced=True)
+        user_policy_on_card(X, E, K, P, dev)
+    for path in SERVE_PATHS:
+        if path in paths:
+            serve_card_vs_cpu(dev, path)
 
 
 def main() -> int:
@@ -2281,26 +2553,18 @@ def main() -> int:
     # in full f32, which the model tolerances assume
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.core import engine as E
-    from repro_torch.core import schedulers as P
-    from repro_torch.core import state as S
-    from repro_torch.core import streaming as ST
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import grouped_matmul as GMM
-    from repro_torch.kernels import ref as KREF
-    from repro_torch.kernels import sched_argmin as K
-    from repro_torch.launch import experiment as X
     mods = {"flash_attention": FA, "grouped_matmul": GMM}
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    card = gpu_line()
     log("1 device", f"{name} x{torch.cuda.device_count()}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}; TF32 off for "
         f"matmul and cuDNN")
-    print(card, flush=True)
+    print(gpu_line(), flush=True)
 
     t0 = time.perf_counter()
     build.build_all()
@@ -2314,7 +2578,24 @@ def main() -> int:
             if "registers" in line or "spill" in line or "entry" in line:
                 print("    " + line.strip())
 
+    return run_phases(a, paths, sweeps, width, tasks, mods, dev, name,
+                      t_all)
+
+
+def run_phases(a, paths, sweeps, width, tasks, mods, dev, name,
+               t_all) -> int:
+    """Phases 3 to 6 of a call."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import schedulers as P
+    from repro_torch.core import state as S
+    from repro_torch.core import streaming as ST
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fma as FMA
+    from repro_torch.kernels import ref as KREF
+    from repro_torch.kernels import sched_argmin as K
+    from repro_torch.launch import experiment as X
     errs = check_kernels(K, KREF, dev)
+    errs["fma"] = check_fma(FMA, KREF, dev)
     errs.update(check_model_kernels(mods, dev))
     launches, captured, peaks = {}, {}, {}
     flat_run = scenario_run = flat_cols = None
@@ -2358,13 +2639,17 @@ def main() -> int:
             f"{peaks['stream']:.2f} GiB, the flat path's "
             f"{peaks.get('flat', float('nan')):.2f} GiB; {gpu_line()}")
     rows = []
-    if "serve" in paths:
-        apps, serve_launches, serve_captured = run_serve(mods, dev,
-                                                         a.serve_tiny)
-        for kname, err in recheck_model_captured(mods,
-                                                 serve_captured).items():
+    serve_launches, serve_captured, in_run = {}, {}, {}
+    for path in SERVE_PATHS:
+        if path not in paths:
+            continue
+        # the path's weights are drawn after the previous path's are freed
+        apps, serve_launches[path], serve_captured[path] = run_serve(
+            mods, dev, path, a.serve_tiny)
+        for kname, err in recheck_model_captured(
+                mods, serve_captured[path], path).items():
             errs[kname] = max(errs[kname], err)
-        in_run = profile_serve(mods, apps, dev)
+        in_run[path] = profile_serve(mods, apps, dev, path)
         del apps
         torch.cuda.empty_cache()
     for path in sweeps:
@@ -2378,28 +2663,15 @@ def main() -> int:
             profile_window(X, E, K, dev, path, width[path], tasks[path],
                            a.machines, steps=WORKFLOW_PROFILE_STEPS
                            if path == "workflow" else 32)
-    for path in sweeps:
-        if path == "stream":
-            stream_card_vs_cpu(X, E, dev)
-        elif path == "chunked":
-            chunked_card_vs_cpu(X, E, dev)
-        elif path == "learned":
-            learned_card_vs_cpu(X, E, dev)
-        elif path == "es":
-            es_card_vs_cpu(dev)
-        else:
-            card_vs_cpu(X, E, dev, path)
-    if "traced" in sweeps:
-        for path in ("flat", "workflow"):
-            card_vs_cpu(X, E, dev, path, traced=True)
-        user_policy_on_card(X, E, K, P, dev)
-    if "serve" in paths:
-        serve_card_vs_cpu(dev)
     if sweeps:
         rows += timings(K, KREF, build, launches, captured, errs, sweeps)
-    if "serve" in paths:
+    if set(sweeps) & set(FMA_PATHS):
+        rows.append(fma_timings(FMA, KREF, launches, captured, errs["fma"],
+                                sweeps))
+    if serve_launches:
         rows += model_timings(mods, serve_launches, serve_captured, errs,
                               in_run)
+    card_vs_cpu_phase(X, E, K, P, dev, sweeps, paths)
     log("done", f"{time.perf_counter() - t_all:.1f} s")
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -4,8 +4,9 @@ Every architecture is one ``ArchConfig`` in ``configs/<id>.py``, found by
 name through ``get_arch``.  ``tiny()`` derives a reduced configuration of
 the same family for CPU tests.  The dataclasses are the reference's field
 for field, so a configuration reads the same in both packages; the
-registry loads the configurations this port has so far (qwen2-1.5b and
-deepseek-moe-16b; the other eight wait for the slices that run them).
+registry loads the configurations this port has so far (qwen2-1.5b,
+deepseek-moe-16b, gemma3-12b and recurrentgemma-2b; the other six wait
+for the slices that run them).
 The shape cells and ``cell_is_runnable`` belong to the dry-run and wait
 with it.
 """
@@ -86,6 +87,10 @@ class ArchConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     @property
+    def d_rnn(self) -> int:
+        return self.rnn_width or self.d_model
+
+    @property
     def cycle_len(self) -> int:
         return len(self.layer_pattern)
 
@@ -129,7 +134,8 @@ class ArchConfig:
 
 
 _REGISTRY: dict[str, ArchConfig] = {}
-PORTED = ("qwen2_1_5b", "deepseek_moe_16b")
+PORTED = ("qwen2_1_5b", "deepseek_moe_16b", "gemma3_12b",
+          "recurrentgemma_2b")
 
 
 def register_arch(cfg: ArchConfig) -> ArchConfig:

@@ -37,9 +37,10 @@ p8``, the output layer and ``linear`` as one fused chain; with
 per-replica weights (batched) the hidden layer is one fused chain, the
 output layer eight fused lanes ``k, k + 8`` reduced by halving, and
 ``linear`` ``((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)) + p8``.
-Multiply-adds are fused as XLA fuses them: the features' through
-``reduce.fma``, the forward pass's in float64 (``_madd``), so the card
-gives the CPU's bits.
+Multiply-adds are fused as XLA fuses them, each one step of the
+``kernels/fma.py`` wrapper: float32 ``x * w + acc`` rounded once, one
+launch on the card (``__fmaf_rn``) and ``reduce.fma`` on the CPU, so the
+card gives the CPU's bits and both the reference's.
 
 ``machine_features_np`` and ``score_machines_np`` are the reference's
 numpy mirror, for ``core/ref_engine.py``.
@@ -52,7 +53,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.reduce import fma, ordered_sum
+from repro_torch.core.reduce import ordered_sum
+from repro_torch.kernels import fma as FMA
 
 N_FEATURES = 9
 HIDDEN = 16
@@ -192,9 +194,9 @@ def features(eet_row: torch.Tensor, en_row: torch.Tensor,
     wait = avail - t
     completion = avail + eet_row - t
     slack = deadline[:, None] - (avail + eet_row)
-    s = fma(ordered_sum(eet_row, 1), inv_m, eps)[:, None]
-    pbar = fma(ordered_sum(en_row / (eet_row + eps[:, None]), 1), inv_m,
-               eps)[:, None]
+    s = FMA.fma(ordered_sum(eet_row, 1), inv_m, eps)[:, None]
+    pbar = FMA.fma(ordered_sum(en_row / (eet_row + eps[:, None]), 1),
+                   inv_m, eps)[:, None]
     en_n = en_row / (s * pbar)
     comp_n = completion / s
     feasible = slack >= 0
@@ -242,27 +244,13 @@ def _halve(lanes: list) -> torch.Tensor:
     return lanes[0]
 
 
-def _madd(x: torch.Tensor, w: torch.Tensor, acc: torch.Tensor
-          ) -> torch.Tensor:
-    """float32 ``acc + x * w`` with one rounding to float32, for ``x``
-    and ``w`` float32 values held in float64: their product is exact
-    there, so the float64 sum rounds once before the float32 rounding.
-    Unlike ``reduce.fma`` (some fifteen kernels), that second rounding
-    can differ from a fused multiply-add, when the float64 sum lands on
-    a float32 midpoint (about one sum in 2^28), the same on both
-    devices; three kernels a step keep the forward pass's launches
-    few."""
-    return torch.addcmul(acc.double(), x, w).float()
-
-
 def _chain(x: torch.Tensor, w: torch.Tensor, batched: bool
            ) -> torch.Tensor:
     """sum_k x[k] w[k] as one fused chain: p0, then a multiply-add for
     k = 1, ..."""
     acc = _x(x, 0) * _w(w, batched, 0)
-    x64, w64 = x.double(), w.double()
     for k in range(1, x.shape[-1]):
-        acc = _madd(_x(x64, k), _w(w64, batched, k), acc)
+        acc = FMA.fma(_x(x, k), _w(w, batched, k), acc)
     return acc
 
 
@@ -275,8 +263,8 @@ def mlp_scores(params: MLPParams, feats: torch.Tensor) -> torch.Tensor:
         z = _chain(feats, w1, True)
     else:
         # four lanes l = k, k + 4, reduced pairwise, then term 8
-        lanes = _madd(feats[..., 4:8, None].double(), w1[4:8].double(),
-                      feats[..., 0:4, None] * w1[0:4])
+        lanes = FMA.fma(feats[..., 4:8, None], w1[4:8],
+                        feats[..., 0:4, None] * w1[0:4])
         z = (lanes[..., 0, :] + lanes[..., 1, :]) \
             + (lanes[..., 2, :] + lanes[..., 3, :])
         z = z + _x(feats, 8) * w1[8]
@@ -284,8 +272,8 @@ def mlp_scores(params: MLPParams, feats: torch.Tensor) -> torch.Tensor:
     if b:
         # eight lanes l = k, k + 8, reduced by halving
         w = w2[:, None, :]
-        lanes = _madd(hid[..., 8:16].double(), w[..., 8:16].double(),
-                      hid[..., 0:8] * w[..., 0:8])
+        lanes = FMA.fma(hid[..., 8:16], w[..., 8:16],
+                        hid[..., 0:8] * w[..., 0:8])
         out = _halve([lanes[..., i] for i in range(8)])
         return out + b2[:, None]
     return _chain(hid, w2[:, None], False)[..., 0] + b2

@@ -8,6 +8,9 @@ Each source is its own library with its own flags:
   empty kernel that measures the launch floor) is built
   with ``--fmad=false``: its kernels are held bit for bit to their plain
   versions, so no multiply-add may be contracted;
+* ``fma`` (the learned policies' multiply-add, ``__fmaf_rn`` over
+  broadcast float32 operands) rounds once by construction and is held bit
+  for bit to its plain version;
 * ``flash_attention`` and ``grouped_matmul`` (the model kernels) are held
   to a tolerance, so they let ``nvcc`` contract multiply-adds into FMAs,
   which is both faster and one rounding closer to the exact product.
@@ -39,6 +42,17 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L4 = ctypes.c_longlong * 4
+
+
+class FmaGeom(ctypes.Structure):
+    """``Geom`` of ``csrc/fma.cu``, passed by value: the output's element
+    count and shape (leading axes padded with 1) and the element strides
+    of the three operands on its axes (0 where broadcast)."""
+    _fields_ = [("n", ctypes.c_longlong), ("shape", _L4), ("sx", _L4),
+                ("sw", _L4), ("sa", _L4)]
+
+
 LIBRARIES = {
     "sched_argmin": {
         "flags": COMMON_FLAGS + ("--fmad=false",),
@@ -61,6 +75,13 @@ LIBRARIES = {
                                        _P, _P),
             # an empty kernel: blocks, threads, stream
             "e2c_noop": (_I, _I, _P),
+        },
+    },
+    "fma": {
+        "flags": COMMON_FLAGS,
+        "signatures": {
+            # x, w, acc, out, geometry (by value), stream
+            "e2c_fma": (_P, _P, _P, _P, FmaGeom, _P),
         },
     },
     "flash_attention": {

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the dispatch and event-loop kernels.
+"""Plain PyTorch versions of the dispatch and event-loop kernels, and of
+the learned policies' multiply-add.
 
 Each function computes, batched over a leading replica axis R, exactly
 what its counterpart in ``repro.kernels.ref`` computes for one replica:
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.reduce import signed_min
+from repro_torch.core.reduce import fma, signed_min
 
 BIG = 1e30
 INT_MAX = 2**31 - 1
@@ -96,3 +97,11 @@ def fused_event_bounds_ref(status: torch.Tensor, arrival: torch.Tensor,
     live = (status >= live_lo) & (status <= live_hi)
     t_dl = signed_min(torch.where(live, deadline, inf), 1)
     return t_arr, t_dl
+
+
+def fma_ref(x: torch.Tensor, w: torch.Tensor, acc: torch.Tensor
+            ) -> torch.Tensor:
+    """float32 ``x * w + acc`` over broadcast operands, rounded once:
+    ``reduce.fma`` (exact in float64, rounded to odd), the CPU twin of
+    ``csrc/fma.cu``'s ``__fmaf_rn``."""
+    return fma(x, w, acc)

@@ -1,16 +1,18 @@
-"""Chunked online-softmax attention and one-token decode attention.
+"""Chunked online-softmax, sliding-window and one-token decode attention.
 
-The subset of ``repro/models/attention.py`` that the serving slice runs:
-``flash_chunked_stats``/``flash_chunked``/``_finalize`` and
-``decode_attend``/``decode_update_attend`` (its local branch,
-``_decode_local`` without sequence sharding).  Prefill attention of the
-dense and MoE blocks goes through the flash-attention kernel instead
-(``models/transformer.py``); decode attention stays here, in plain
-PyTorch, because it attends one query at absolute position ``pos``
-against a ring cache whose slots carry their own positions and a
-validity mask, which the kernel's implicit ``0..S-1`` positions cannot
-express — in the reference too it is XLA code outside any Pallas kernel.
-``sliding_window_attention``, ``hierarchical_causal`` and
+The subset of ``repro/models/attention.py`` that the serving slices run:
+``flash_chunked_stats``/``flash_chunked``/``_finalize``,
+``sliding_window_attention`` and ``decode_attend``/
+``decode_update_attend`` (its local branch, ``_decode_local`` without
+sequence sharding).  Prefill attention of every block, global or local,
+goes through the flash-attention kernel's wrapper:
+``sliding_window_attention`` is that kernel with ``window`` set (the
+reference's blocked band, exact, computed here without the blocks).
+Decode attention stays in plain PyTorch, because it attends one query
+at absolute position ``pos`` against a ring cache whose slots carry
+their own positions and a validity mask, which the kernel's implicit
+``0..S-1`` positions cannot express — in the reference too it is XLA
+code outside any Pallas kernel.  ``hierarchical_causal`` and
 ``block_causal`` are not on this path and wait (ROADMAP queue A16).
 
 q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd) with GQA groups G = H // KV.
@@ -18,6 +20,8 @@ q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd) with GQA groups G = H // KV.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import flash_attention as FA
 
 NEG = -1e30
 
@@ -97,6 +101,39 @@ def flash_chunked(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     return _finalize(m, l, acc, B, Sq, H, hd, q.dtype)
 
 
+def _heads_to_batch(x):
+    """(B, S, H, hd) -> (B*H, S, hd)."""
+    B, S, H, hd = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B * H, S, hd)
+
+
+def causal_flash(q, k, v, *, window: int = 0,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """Causal attention over positions 0..S-1 (``window`` > 0: query p
+    attends keys p - window < kpos <= p): one call of the flash-attention
+    kernel's wrapper on (B*H, S, hd) views, the KV heads repeated to full
+    heads.  -> (B, S, H, hd)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+    o = FA.flash_attention(_heads_to_batch(q), _heads_to_batch(k),
+                           _heads_to_batch(v), causal=True, window=window,
+                           softcap=softcap)
+    return o.reshape(B, H, S, hd).permute(0, 2, 1, 3)
+
+
+def sliding_window_attention(q, k, v, q_pos, *, window: int,
+                             softcap: float = 0.0) -> torch.Tensor:
+    """Exact sliding-window attention for prefill (positions 0..S-1), the
+    reference's band ``0 <= q_pos - k_pos < window``: ``causal_flash``
+    with ``window``.  ``q_pos`` is taken for the reference's signature;
+    the positions are 0..S-1 as there."""
+    del q_pos
+    return causal_flash(q, k, v, window=window, softcap=softcap)
+
+
 def decode_attend(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
                   softcap: float = 0.0, chunk: int = 2048) -> torch.Tensor:
     """One-token attention against a (possibly ring) KV cache.
@@ -109,24 +146,36 @@ def decode_attend(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
                          k_valid=valid, chunk=chunk)
 
 
-def decode_update_attend(q, k_new, v_new, ck, cv, slot_pos, pos, *,
-                         window: int = 0, softcap: float = 0.0,
-                         chunk: int = 2048):
-    """Write the new token's K/V into the cache slot ``pos % L`` and
-    attend.  q/k_new/v_new: (B, 1, H|KV, hd); ck/cv: (B, L, KV, hd);
-    slot_pos: (B, L); pos: (B,).  Unlike the reference, which returns new
-    arrays, the three cache tensors are updated in place (saving a copy
-    of every layer's cache a token) and returned."""
-    B = slot_pos.shape[0]
-    bidx = torch.arange(B, device=slot_pos.device)
+def _decode_local(q, k_new, v_new, ck, cv, sp, pos, *, window: int,
+                  softcap: float, chunk: int):
+    """Write the new token into its slot ``pos % L`` of the (ring) cache
+    and attend over every valid slot: the reference's ``_decode_local``
+    on one device (no sequence shards).  The three cache tensors are
+    updated in place and returned."""
+    B = sp.shape[0]
+    bidx = torch.arange(B, device=sp.device)
     slot = (pos % ck.shape[1]).long()
     ck[bidx, slot] = k_new[:, 0]
     cv[bidx, slot] = v_new[:, 0]
-    slot_pos[bidx, slot] = pos.to(slot_pos.dtype)
-    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
-    m, l, acc = flash_chunked_stats(q, ck, cv, pos[:, None], slot_pos,
+    sp[bidx, slot] = pos.to(sp.dtype)
+    valid = (sp >= 0) & (sp <= pos[:, None])
+    m, l, acc = flash_chunked_stats(q, ck, cv, pos[:, None], sp,
                                     causal=True, window=window,
                                     softcap=softcap, k_valid=valid,
                                     chunk=chunk)
     _, _, H, hd = q.shape
-    return _finalize(m, l, acc, B, 1, H, hd, q.dtype), ck, cv, slot_pos
+    return _finalize(m, l, acc, B, 1, H, hd, q.dtype), ck, cv, sp
+
+
+def decode_update_attend(q, k_new, v_new, ck, cv, slot_pos, pos, *,
+                         window: int = 0, softcap: float = 0.0,
+                         chunk: int = 2048):
+    """Write the new token's K/V into the cache slot ``pos % L`` and
+    attend; ``L`` is the full cache or a local layer's ring of
+    ``min(window, cache_len)`` slots.  q/k_new/v_new: (B, 1, H|KV, hd);
+    ck/cv: (B, L, KV, hd); slot_pos: (B, L); pos: (B,).  Unlike the
+    reference, which returns new arrays, the three cache tensors are
+    updated in place (saving a copy of every layer's cache a token) and
+    returned."""
+    return _decode_local(q, k_new, v_new, ck, cv, slot_pos, pos,
+                         window=window, softcap=softcap, chunk=chunk)

@@ -1,15 +1,16 @@
 """Shared model primitives: norms, RoPE, gated MLPs, embeddings.
 
-The subset of ``repro/models/layers.py`` that the dense and MoE
-transformers use: RMSNorm and bias-free gated MLPs, which the two ported
-configurations need (LayerNorm and the plain MLP wait for the
-configurations that use them).  Parameters are plain dicts of tensors
-with the reference's names and layouts (``wi`` (d, 2, d_ff) holds gate
-and up side by side).  Initializers draw from an explicit
-``torch.Generator`` at the reference's scales: fan-in ``fan**-0.5``,
-embeddings ``d**-0.5``, norms and biases zero.  They give other numbers
-than ``jax.random`` for the same seed; tests carry the reference's
-weights across with ``interop.lm_params_from_numpy``.  The ``Ax`` logical-axis annotations
+The subset of ``repro/models/layers.py`` that the ported configurations
+use: RMSNorm and its head-wise QK-norm form, bias-free gated MLPs, plain
+linear maps and the causal temporal convolution of the RG-LRU block
+(LayerNorm and the plain MLP wait for the configurations that use
+them).  Parameters are plain dicts of tensors with the reference's
+names and layouts (``wi`` (d, 2, d_ff) holds gate and up side by side).
+Initializers draw from an explicit ``torch.Generator`` at the
+reference's scales: fan-in ``fan**-0.5``, embeddings ``d**-0.5``, norms,
+biases and conv taps zero.  They give other numbers than ``jax.random``
+for the same seed; tests carry the reference's weights across with
+``interop.lm_params_from_numpy``.  The ``Ax`` logical-axis annotations
 are sharding machinery and wait for the ``torch.distributed`` slice.
 
 Products take the activation's dtype for both operands, as the
@@ -70,6 +71,16 @@ def apply_norm(kind: str, p: dict, x: torch.Tensor,
     return y.to(x.dtype)
 
 
+def rms_norm_headwise(scale: torch.Tensor, x: torch.Tensor,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """QK-norm: RMSNorm over the last (head_dim) axis, one shared
+    ``(1 + scale)``."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return y.to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # RoPE
 # --------------------------------------------------------------------------
@@ -92,8 +103,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# Gated MLP
+# Linear maps and the gated MLP
 # --------------------------------------------------------------------------
+def apply_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w (+ b)`` in ``x``'s dtype."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
 def act_fn(name: str):
     return {"silu": F.silu,
             "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -147,3 +166,34 @@ def unembed(p_head: dict | None, p_embed: dict, x: torch.Tensor,
 def init_lm_head(gen: torch.Generator, d: int, vocab: int, *,
                  dtype=torch.float32) -> dict:
     return {"w": fanin_init(gen, (d, vocab), dtype=dtype)}
+
+
+# --------------------------------------------------------------------------
+# Causal temporal conv (RG-LRU blocks)
+# --------------------------------------------------------------------------
+def init_conv1d(width: int, d: int, *, dtype=torch.float32,
+                device=None) -> dict:
+    return {"w": zeros_init((width, d), dtype=dtype, device=device),
+            "b": zeros_init((d,), dtype=dtype, device=device)}
+
+
+def apply_conv1d(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over time, x: (B, S, D): tap ``width-1-i``
+    reads the input ``i`` steps back (zeros before the start)."""
+    w = p["w"].to(x.dtype)
+    S = x.shape[1]
+    out = x * w[-1]
+    for i in range(1, w.shape[0]):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :S]
+        out = out + shifted * w[-1 - i]
+    return out + p["b"].to(x.dtype)
+
+
+def conv1d_step(p: dict, buf: torch.Tensor, x_t: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step.  buf: (B, width-1, D) past inputs; x_t: (B, D)
+    -> (y (B, D), the next buffer)."""
+    w = p["w"].to(x_t.dtype)
+    window = torch.cat([buf.to(x_t.dtype), x_t[:, None]], dim=1)
+    y = torch.einsum("bwd,wd->bd", window, w) + p["b"].to(x_t.dtype)
+    return y, window[:, 1:]

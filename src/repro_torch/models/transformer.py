@@ -1,20 +1,31 @@
-"""Attention sub-layer and the dense and MoE transformer blocks.
+"""Attention sub-layer and the transformer and recurrent blocks.
 
-The subset of ``repro/models/transformer.py`` that the serving slice
-runs: block kinds ``global`` (attention + gated MLP), ``dense_ffn``
-(attention + a wider gated MLP, deepseek's layer 0) and ``moe``
-(attention + routed experts).  Each block has a fused prefill path and a
-one-token decode path with an explicit cache entry
-``{k, v: (B, S_cache, KV, hd), slot_pos: (B, S_cache)}``.
+The subset of ``repro/models/transformer.py`` that the serving slices
+run: block kinds ``global`` (attention + gated MLP), ``local``
+(sliding-window attention + gated MLP, a ring cache of
+``min(window, cache_len)`` slots), ``dense_ffn`` (attention + a wider
+gated MLP, deepseek's layer 0), ``moe`` (attention + routed experts) and
+``rec`` (the RG-LRU recurrent block + gated MLP), with QK-norm, the
+sandwich post-norms ``ln1b``/``ln2b`` and gemma3's local RoPE theta.
+Each block has a fused prefill path and a one-token decode path with an
+explicit cache entry:
 
-Prefill attention of a causal, non-local block always calls the
-flash-attention kernel's wrapper on (B*H, S, hd) views, after repeating
-the KV heads to full heads; that is the kernel route the reference
-documents for ``attn_impl="pallas"`` (its own dispatch falls through to
-the XLA ``flash_chunked`` there, ROADMAP queue C).  ``"chunked"`` and
-``"pallas"`` both take it.  Decode attention goes through
-``attention.decode_update_attend``.  The kinds and options this slice
-does not run raise ``NotImplementedError`` naming their ROADMAP item.
+  kind                   cache entry
+  global/moe/dense_ffn   {k, v: (B, S_cache, KV, hd), slot_pos: (B, S_cache)}
+  local                  the same fields over min(window, S_cache) slots
+  rec                    {h: (B, d_rnn) f32, conv: (B, width-1, d_rnn)}
+
+Prefill attention always calls the flash-attention kernel's wrapper on
+(B*H, S, hd) views, after repeating the KV heads to full heads: causal
+for global blocks, causal with ``window`` for local ones
+(``attention.sliding_window_attention``, the reference's route for
+local prefill).  For global blocks that is the kernel route the
+reference documents for ``attn_impl="pallas"`` (its own dispatch falls
+through to the XLA ``flash_chunked`` there, ROADMAP queue C);
+``"chunked"`` and ``"pallas"`` both take it.  Decode attention goes
+through ``attention.decode_update_attend``.  The kinds and options this
+slice does not run (xLSTM blocks, parallel blocks, cross-attention)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,10 +35,10 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +51,8 @@ class ModelOptions:
     dtype: Any = torch.bfloat16
 
 
-ATTN_KINDS = ("global", "moe", "dense_ffn")
+ATTN_KINDS = ("global", "local", "moe", "dense_ffn")
+KINDS = ATTN_KINDS + ("rec",)
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -49,12 +61,14 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_kind(kind: str) -> None:
-    if kind == "local":
-        raise not_ported("sliding-window ('local') attention",
-                         "queue A16: sliding_window_attention")
-    if kind not in ATTN_KINDS:
-        raise not_ported(f"block kind {kind!r}",
-                         "queue A16: rglru/xlstm blocks")
+    if kind not in KINDS:
+        raise not_ported(f"block kind {kind!r}", "queue A16: xlstm blocks")
+
+
+def _rope_theta(cfg: ArchConfig, kind: str) -> float:
+    if kind == "local" and cfg.rope_theta_local:
+        return cfg.rope_theta_local
+    return cfg.rope_theta
 
 
 # ---------------------------------------------------------------------------
@@ -62,8 +76,6 @@ def _check_kind(kind: str) -> None:
 # ---------------------------------------------------------------------------
 def init_attention(gen: torch.Generator, cfg: ArchConfig, *,
                    dtype=torch.float32) -> dict:
-    if cfg.qk_norm:
-        raise not_ported("QK-norm", "queue A16: qwen3/gemma3 blocks")
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dev = gen.device
     p = {
@@ -76,6 +88,9 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, *,
         p["bq"] = L.zeros_init((H, hd), dtype=dtype, device=dev)
         p["bk"] = L.zeros_init((KV, hd), dtype=dtype, device=dev)
         p["bv"] = L.zeros_init((KV, hd), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["qn"] = L.zeros_init((hd,), dtype=dtype, device=dev)
+        p["kn"] = L.zeros_init((hd,), dtype=dtype, device=dev)
     return p
 
 
@@ -90,6 +105,9 @@ def _project_qkv(p, x):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
+    if "qn" in p:
+        q = L.rms_norm_headwise(p["qn"], q)
+        k = L.rms_norm_headwise(p["kn"], k)
     return q, k, v
 
 
@@ -98,18 +116,12 @@ def _out_proj(p, o, dtype):
     return (o.flatten(2).to(dtype) @ p["wo"].to(dtype).flatten(0, 1))
 
 
-def _heads_to_batch(x):
-    """(B, S, H, hd) -> (B*H, S, hd)."""
-    B, S, H, hd = x.shape
-    return x.permute(0, 2, 1, 3).reshape(B * H, S, hd)
-
-
 def apply_attention(p, x, cfg: ArchConfig, opt: ModelOptions, kind: str,
                     positions, *, causal: bool = True, cache=None,
                     mode: str = "prefill", cache_len: int | None = None):
     """Full attention sub-layer.  Returns (y, new_cache)."""
-    _check_kind(kind)
-    theta = cfg.rope_theta
+    theta = _rope_theta(cfg, kind)
+    window = cfg.window if kind == "local" else 0
 
     if mode == "decode":
         q, k_new, v_new = _project_qkv(p, x)            # (B,1,H/KV,hd)
@@ -118,7 +130,8 @@ def apply_attention(p, x, cfg: ArchConfig, opt: ModelOptions, kind: str,
         k_new = L.apply_rope(k_new, positions, theta)
         o, k, v, slot_pos = ATT.decode_update_attend(
             q, k_new, v_new, cache["k"], cache["v"], cache["slot_pos"],
-            pos, softcap=cfg.attn_softcap, chunk=opt.kv_chunk)
+            pos, window=window, softcap=cfg.attn_softcap,
+            chunk=opt.kv_chunk)
         return _out_proj(p, o, x.dtype), {"k": k, "v": v,
                                           "slot_pos": slot_pos}
 
@@ -135,30 +148,27 @@ def apply_attention(p, x, cfg: ArchConfig, opt: ModelOptions, kind: str,
     q, k, v = _project_qkv(p, x)
     q = L.apply_rope(q, positions, theta)
     k = L.apply_rope(k, positions, theta)
-    k_cache, v_cache = k, v                  # GQA layout kept for the cache
-    G = cfg.n_heads // cfg.n_kv_heads
-    if G > 1:
-        k = torch.repeat_interleave(k, G, dim=2)
-        v = torch.repeat_interleave(v, G, dim=2)
-    B, S, H, hd = q.shape
-    o = FA.flash_attention(_heads_to_batch(q), _heads_to_batch(k),
-                           _heads_to_batch(v), causal=True,
-                           softcap=cfg.attn_softcap)
-    o = o.reshape(B, H, S, hd).permute(0, 2, 1, 3)
+    if kind == "local":
+        o = ATT.sliding_window_attention(q, k, v, positions, window=window,
+                                         softcap=cfg.attn_softcap)
+    else:
+        o = ATT.causal_flash(q, k, v, softcap=cfg.attn_softcap)
     y = _out_proj(p, o, x.dtype)
 
     # the decode cache: positions max(0, S-ring)..S-1 at slot (pos % ring)
-    ring = max(cache_len or S, S)
+    # (a local layer keeps a ring of min(window, cache_len) slots); the
+    # cache holds the KV heads unrepeated
+    B, S, KVh, hd = k.shape
+    cl = max(cache_len or S, S)
+    ring = min(window, cl) if window else cl
     n_keep = min(ring, S)
     pos_keep = torch.arange(S - n_keep, S, device=x.device)
     slots = pos_keep % ring
-    KVh = k_cache.shape[2]
-    kbuf = torch.zeros((B, ring, KVh, hd), dtype=k_cache.dtype,
-                       device=x.device)
+    kbuf = torch.zeros((B, ring, KVh, hd), dtype=k.dtype, device=x.device)
     vbuf = torch.zeros_like(kbuf)
     spbuf = torch.full((B, ring), -1, dtype=torch.int32, device=x.device)
-    kbuf[:, slots] = k_cache[:, pos_keep]
-    vbuf[:, slots] = v_cache[:, pos_keep]
+    kbuf[:, slots] = k[:, pos_keep]
+    vbuf[:, slots] = v[:, pos_keep]
     spbuf[:, slots] = pos_keep.to(torch.int32)
     return y, {"k": kbuf, "v": vbuf, "slot_pos": spbuf}
 
@@ -169,23 +179,33 @@ def apply_attention(p, x, cfg: ArchConfig, opt: ModelOptions, kind: str,
 def init_block(gen: torch.Generator, kind: str, cfg: ArchConfig, *,
                dtype=torch.float32) -> dict:
     _check_kind(kind)
-    if cfg.post_norms or cfg.parallel_block or cfg.is_encdec:
-        raise not_ported("post-norm, parallel and cross-attention blocks",
+    if cfg.parallel_block or cfg.is_encdec:
+        raise not_ported("parallel and cross-attention blocks",
                          "queue A16: remaining configs")
     dev = gen.device
 
     def nrm():
         return L.init_norm(cfg.norm, cfg.d_model, dtype=dtype, device=dev)
 
-    p: dict = {"ln1": nrm(), "attn": init_attention(gen, cfg, dtype=dtype),
-               "ln2": nrm()}
+    def gated(d_ff):
+        return L.init_gated_mlp(gen, cfg.d_model, d_ff, dtype=dtype)
+
+    if kind == "rec":
+        return {"ln1": nrm(),
+                "rec": RG.init_rglru_block(gen, cfg.d_model, cfg.d_rnn,
+                                           cfg.conv_width, dtype=dtype),
+                "ln2": nrm(), "mlp": gated(cfg.d_ff)}
+    p: dict = {"ln1": nrm(), "attn": init_attention(gen, cfg, dtype=dtype)}
+    if cfg.post_norms:
+        p["ln1b"] = nrm()
+        p["ln2b"] = nrm()
+    p["ln2"] = nrm()
     if kind == "moe":
         p["moe"] = MOE.init_moe(gen, cfg.d_model, cfg.moe, dtype=dtype)
     elif kind == "dense_ffn":
-        p["mlp"] = L.init_gated_mlp(gen, cfg.d_model, cfg.d_ff_dense,
-                                    dtype=dtype)
+        p["mlp"] = gated(cfg.d_ff_dense)
     elif cfg.mlp_act in ("silu", "gelu"):
-        p["mlp"] = L.init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dtype)
+        p["mlp"] = gated(cfg.d_ff)
     else:
         raise not_ported(f"plain MLP ({cfg.mlp_act})",
                          "queue A16: remaining configs")
@@ -195,12 +215,16 @@ def init_block(gen: torch.Generator, kind: str, cfg: ArchConfig, *,
 def init_block_cache(kind: str, cfg: ArchConfig, batch: int, s_cache: int,
                      dtype, device=None) -> dict:
     _check_kind(kind)
+    if kind == "rec":
+        return RG.init_rglru_cache(batch, cfg.d_rnn, cfg.conv_width, dtype,
+                                   device=device)
     KV, hd = cfg.n_kv_heads, cfg.hd
-    return {"k": torch.zeros((batch, s_cache, KV, hd), dtype=dtype,
+    size = min(cfg.window, s_cache) if kind == "local" else s_cache
+    return {"k": torch.zeros((batch, size, KV, hd), dtype=dtype,
                              device=device),
-            "v": torch.zeros((batch, s_cache, KV, hd), dtype=dtype,
+            "v": torch.zeros((batch, size, KV, hd), dtype=dtype,
                              device=device),
-            "slot_pos": torch.full((batch, s_cache), -1, dtype=torch.int32,
+            "slot_pos": torch.full((batch, size), -1, dtype=torch.int32,
                                    device=device)}
 
 
@@ -208,16 +232,36 @@ def apply_block(kind: str, p: dict, x, cfg: ArchConfig, opt: ModelOptions,
                 positions, *, mode: str, cache=None, causal: bool = True,
                 cache_len: int | None = None):
     """Returns (x, new_cache, aux_loss)."""
+    _check_kind(kind)
+
     def nrm(pp, xx):
         return L.apply_norm(cfg.norm, pp, xx, cfg.norm_eps)
 
     h = nrm(p["ln1"], x)
+    if kind == "rec":
+        if mode == "decode":
+            y, new_cache = RG.apply_rglru_block_step(p["rec"], h, cache,
+                                                     cfg.mlp_act)
+        else:
+            y, h_last = RG.apply_rglru_block(p["rec"], h, cfg.mlp_act)
+            # the conv buffer holds the last width-1 pre-conv inputs:
+            # project only those rows
+            new_cache = {"h": h_last, "conv": L.apply_linear(
+                {"w": p["rec"]["in_rec"]}, h[:, -(cfg.conv_width - 1):])}
+        x = x + y
+        x = x + L.apply_gated_mlp(p["mlp"], nrm(p["ln2"], x), cfg.mlp_act)
+        return x, new_cache, torch.zeros((), dtype=torch.float32,
+                                         device=x.device)
     attn_out, new_cache = apply_attention(
         p["attn"], h, cfg, opt, kind, positions, causal=causal, cache=cache,
         mode=mode, cache_len=cache_len)
+    if cfg.post_norms:
+        attn_out = nrm(p["ln1b"], attn_out)
     x = x + attn_out
     h2 = nrm(p["ln2"], x)
     mlp_out, aux = _apply_ffn(kind, p, h2, cfg)
+    if cfg.post_norms:
+        mlp_out = nrm(p["ln2b"], mlp_out)
     return x + mlp_out, new_cache, aux
 
 

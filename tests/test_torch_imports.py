@@ -49,6 +49,9 @@ def test_port_imports_no_jax_and_no_reference():
                  "repro_torch.models.model",
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.grouped_matmul",
+                 "repro_torch.kernels.fma", "repro_torch.models.rglru",
+                 "repro_torch.configs.gemma3_12b",
+                 "repro_torch.configs.recurrentgemma_2b",
                  "repro_torch.core.ref_engine", "repro_torch.core.metrics",
                  "repro_torch.serving", "repro_torch.serving.engine"):
         assert name in result["modules"]

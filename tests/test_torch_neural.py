@@ -149,6 +149,123 @@ def test_scores_match(policy, stacked, r, m):
     assert (np.abs(got.astype(np.float64) - want) <= 1e-6 * mag).all()
 
 
+# The queue C probe: x * w rounds to a float32 midpoint above acc, so
+# a multiply-add rounded twice (float64 sum, then float32) gives
+# 0x1.000004p+0 where a fused one gives 0x1.000002p+0.
+PROBE_X = np.float32(2**-12 * (1 + 2**-18))
+PROBE_W = np.float32(2**-12 * (1 - 2**-18))
+PROBE_ACC = np.float32(1 + 2**-23)
+
+
+def _probe(policy, stacked, layer, r, m):
+    """Features and numpy weights that put the probe into one
+    multiply-add of the forward pass: the chain of ``linear``, the
+    hidden layer's first lane (shared: lane k = 0, 4; batched: the
+    chain's k = 1) or the output layer's (shared: the chain's k = 1;
+    batched: lane k = 0, 8); every other weight 0."""
+    f = np.zeros((r, m, NN.N_FEATURES), np.float32)
+    d = {k: np.zeros_like(v)
+         for k, v in JN.params_to_numpy(JN.init_params(0)).items()}
+    if policy == "linear":
+        f[..., 0], f[..., 1] = PROBE_ACC, PROBE_X
+        d["lw"][0], d["lw"][1] = 1, PROBE_W
+    elif layer == "hidden":
+        k = 1 if stacked else 4
+        f[..., 0], f[..., k] = PROBE_ACC, PROBE_X
+        d["w1"][0, :], d["w1"][k, :] = 1, PROBE_W
+        d["w2"][0] = 1
+    else:
+        k = 8 if stacked else 1
+        d["b1"][0], d["b1"][k] = PROBE_ACC, PROBE_X
+        d["w2"][0], d["w2"][k] = 1, PROBE_W
+    if stacked:
+        d = {k: np.broadcast_to(v, (r,) + v.shape).copy()
+             for k, v in d.items()}
+    return f, d
+
+
+@pytest.mark.parametrize("r,m", [(4, 3), (64, 8), (8, 32), (4096, 32)])
+@pytest.mark.parametrize("policy,stacked,layer", [
+    ("linear", False, "chain"), ("linear", True, "chain"),
+    ("mlp", False, "hidden"), ("mlp", False, "output"),
+    ("mlp", True, "hidden"), ("mlp", True, "output")])
+def test_queue_c_probe_bitwise(policy, stacked, layer, r, m):
+    """Every multiply-add of the forward pass rounds once, as XLA's
+    fused one does: bitwise the jitted JAX forward pass on the probe,
+    shared and batched weights, at the engine's shapes."""
+    f, d = _probe(policy, stacked, layer, r, m)
+    pp = JN.PolicyParams(
+        JN.MLPParams(*(jnp.asarray(d[k]) for k in ("w1", "b1", "w2", "b2"))),
+        JN.LinearParams(jnp.asarray(d["lw"])))
+
+    def fwd(p, x):
+        return JN.mlp_scores(p.mlp, x) if policy == "mlp" \
+            else JN.linear_scores(p.linear, x)
+
+    want = np.asarray(jax.jit(jax.vmap(
+        fwd, in_axes=(0 if stacked else None, 0)))(pp, f))
+    got = NN.scores(policy, interop.policy_params_from_numpy(d, "cpu"),
+                    torch.from_numpy(f)).numpy()
+    assert got.shape == want.shape == (r, m)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    # fused: x * w is below half an ulp of acc; the batched linear form
+    # rounds the product first, which ties up to 1 + 2^-22
+    assert want[0, 0] == (np.float32(1 + 2**-22) if policy == "linear"
+                          and stacked else PROBE_ACC)
+
+
+def test_fma_wrapper_cpu_is_reduce_fma():
+    """On CPU tensors the kernel's wrapper is its plain version,
+    ``reduce.fma``, over broadcast operands, counting no launch; it
+    refuses other dtypes and mixed devices."""
+    from repro_torch.core.reduce import fma as reduce_fma
+    from repro_torch.kernels import fma as FMA
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((5, 1, 3, 1), generator=g)
+    w = torch.randn((3, 7), generator=g)
+    acc = torch.randn((5, 2, 1, 7), generator=g)
+    before = dict(FMA.launches)
+    got = FMA.fma(x, w, acc)
+    assert got.shape == (5, 2, 3, 7) and FMA.launches == before
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  reduce_fma(x, w, acc).numpy()
+                                  .view(np.int32))
+    np.testing.assert_array_equal(
+        FMA.fma(torch.tensor([PROBE_X]), torch.tensor([PROBE_W]),
+                torch.tensor([PROBE_ACC])).numpy(), [PROBE_ACC])
+    with pytest.raises(ValueError, match="float32"):
+        FMA.fma(x.double(), w, acc)
+    # the kernel's geometry: the shape padded to four axes, each
+    # operand's strides broadcast (0 on broadcast axes)
+    g = FMA.geometry(torch.Size([5, 2, 3]), x[..., 0], w[:, 0],
+                     acc[..., 0])
+    assert (g.n, list(g.shape)) == (5 * 2 * 3, [1, 5, 2, 3])
+    assert list(g.sx) == [0, 3, 0, 1] and list(g.sw) == [0, 0, 0, 7] \
+        and list(g.sa) == [0, 14, 7, 0]
+
+
+def test_fma_refuses_offsets_past_32_bits():
+    """The kernel indexes in 32 bits: the wrapper's check passes the
+    forward pass's largest layouts and refuses an element count or an
+    operand offset past ``MAX_INDEX`` (broadcast views, no memory)."""
+    from repro_torch.kernels import fma as FMA
+    one = torch.zeros(1)
+    for shape in ((4096, 32, 4, 16), (4096, 32, 64), (8192, 1024)):
+        s = torch.Size(shape)
+        FMA.check_fits(FMA.geometry(s, one.expand(s), one, one))
+    s = torch.Size([2**16, 2**16])
+    with pytest.raises(ValueError, match="32-bit"):
+        FMA.check_fits(FMA.geometry(s, one.expand(2**16, 1),
+                                    one.expand(1, 2**16), one))
+    # two elements, but an operand strided past the limit (a meta
+    # tensor: strides without storage)
+    s = torch.Size([2, 1])
+    far = torch.empty_strided((2, 1), (FMA.MAX_INDEX + 1, 1),
+                              device="meta")
+    with pytest.raises(ValueError, match="offset"):
+        FMA.check_fits(FMA.geometry(s, far, one, one))
+
+
 def test_parameter_helpers():
     """The warm starts, ``n_trainable``, the ravel order (that of the
     reference's ``ravel_pytree``) and the numpy round trip."""
