@@ -13,6 +13,8 @@
     python3 chip_smoke.py --paths learned,es --learned-replicas 512 \
         --es-generations 2                                         # short
     python3 chip_smoke.py --paths serve_gemma --serve-tiny         # short
+    python3 chip_smoke.py --paths serve_xlstm,serve_wide,frontends \
+        --serve-tiny                                               # short
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
@@ -33,7 +35,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      ``tests/test_kernels.py``), each model-kernel case launched twice
      and the two results bitwise equal; flash attention also at the
      serve_gemma path's shapes, f32 16 x 2048 x 256 causal with window
-     1024 and 10 x 2048 x 256 causal with window 2048;
+     1024 and 10 x 2048 x 256 causal with window 2048, non-causal with
+     Sq = Sk, Sq < Sk and one query at head widths 64 and 96, and in f32
+     at the seamless encoder's 16 x 1024 x 1024 x 64 (non-causal), its
+     cross-attention (512 queries against 1024 frames; one query), its
+     decoder's causal prefill, phi-3-vision's 32 x 1024 x 96 and the 64
+     x 1024 x 128 prefill of command-r, qwen2-72b and qwen3-moe; the
+     grouped matmul also at qwen3-moe's G = 128 experts, d 4096 -> 3072
+     and 1536 -> 4096, at a 1024-token prefill (C = 80) and a decode
+     step (8 live groups of one row);
   4. main paths, each driven through its entry point with the launch
      counts set to 0 just before it and read just after, every kernel of
      the path launched, and kernel inputs captured from the run
@@ -119,6 +129,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  window) and 32 generated tokens (both rings wrap); every
                  request completes and flash attention launches once per
                  attention layer of each prefill;
+       serve_xlstm  the same engine, fleet, policy and requests serving
+                 xlstm-350m as published (24 layers, 6 x (mlstm, mlstm,
+                 mlstm, slstm), LayerNorm, tied embeddings) and
+                 qwen2-72b at its published widths cut to 4 of 80 layers
+                 (d 8192, QKV bias), prompt 1024 and 32 tokens; no flash
+                 launch for an xLSTM layer;
+       serve_wide  the same, command-r-35b at its published widths cut
+                 to 4 of 40 layers (parallel blocks, LayerNorm, tied
+                 vocab 256000) and qwen3-moe-235b-a22b cut to 2 of 94
+                 (128 experts, top-8, QK-norm): the grouped matmul at
+                 G = 128;
+       frontends  ``models/model.py`` ``prefill`` and ``decode_step``
+                 called directly (the engine passes tokens alone, as the
+                 reference's does), 2 requests of each app, prompt 1024
+                 and 32 tokens: seamless-m4t-large-v2 as published (24
+                 encoder + 24 decoder layers) over 1024 seeded frames of
+                 width 1024 (the encoder's non-causal flash, the
+                 decoder's cross-attention flash at prefill and at each
+                 decode step) and phi-3-vision-4.2b as published (32
+                 layers) with 576 seeded patch embeddings spliced over
+                 its first positions; every request's tokens in the
+                 vocabulary and its last logits finite;
   5. card vs CPU (run last, after phase 6, so that no timed or profiled
      window shares the card or the host with it; phase 6 read lost
      profiler records when it ran after this phase): a
@@ -152,7 +184,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      4-scenario grid, its fitness values, theta' and best theta bitwise
      equal to the CPU's; the
      tiny configurations of both apps of each serving path through the
-     same ``ServingEngine`` on both (a prompt of 40 past the tiny window
+     same driver (the ``ServingEngine``; for frontends the direct calls)
+     on both (a prompt of 40 past the tiny window
      of 16, 6 tokens past the ring's wrap), the card teacher-forced with
      the CPU's tokens, must agree on every logit to atol = rtol = 1e-4
      and on the greedy token wherever the CPU's top-2 margin exceeds
@@ -220,7 +253,10 @@ CHUNKED_PROFILE = (2048, 1024)   # the chunked profile's replicas, chunk
 # activities, whose profiler records take 2.5 min to read: 8 steps
 WORKFLOW_PROFILE_STEPS = 8
 PROFILE_TRIES = 3      # profiled serving windows a request, at most
-SERVE_PATHS = ("serve", "serve_gemma")     # the model paths
+SERVE_PATHS = ("serve", "serve_gemma", "serve_xlstm", "serve_wide",
+               "frontends")                # the model paths
+FRONTENDS = "frontends"     # the model path driven without the engine
+FRONTEND_REQUESTS = 2       # its requests of each app
 ALL_PATHS = PATHS + SERVE_PATHS
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -1852,6 +1888,7 @@ def profile_window(X, E, K, dev, path, n_rep, n_tasks, n_mach, steps=32,
 # model kernels: flash attention and the grouped matmul
 # ---------------------------------------------------------------------------
 MODEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ZERO_LEAF_NOISE = 0.1   # the serving weights' noise on zero leaves
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -1943,10 +1980,38 @@ def model_kernel_cases(dev):
                  "hd 37: rows not 16-byte multiples"),
                 (12, 1024, 1024, 128, {"causal": True},
                  "qwen2-1.5b prefill shape"),
+                (2, 100, 100, 96, {"causal": True}, "hd 96, ragged S"),
+                (2, 70, 130, 96, {"causal": False}, "hd 96, Sq < Sk"),
+                (3, 1, 77, 64, {"causal": False}, "one query, hd 64"),
+                (3, 1, 130, 96, {"causal": False}, "one query, hd 96"),
+                (4, 1, 1024, 128, {"causal": False},
+                 "decode route, one query, hd 128"),
+                (3, 4, 200, 64, {"causal": True},
+                 "decode route, 4 causal queries"),
+                (2, 3, 65, 37, {"causal": True, "window": 2},
+                 "decode route, window 2, hd 37, 64 + 1 keys"),
+                (2, 1, 10, 256, {"causal": False, "softcap": 20.0},
+                 "decode route, softcap, hd 256, 10 keys"),
+                (2, 5, 130, 64, {"causal": False},
+                 "5 queries: the tiled kernel"),
                 *(((16, 2048, 2048, 256, {"causal": True, "window": 1024},
                     "gemma3-12b local prefill, S = 2048 > window"),
                    (10, 2048, 2048, 256, {"causal": True, "window": 2048},
-                    "recurrentgemma-2b local prefill, window = S"))
+                    "recurrentgemma-2b local prefill, window = S"),
+                   (16, 1024, 1024, 64, {"causal": False},
+                    "seamless encoder, non-causal, 16 heads x 64"),
+                   (16, 512, 1024, 64, {"causal": False},
+                    "seamless cross-attention prefill, 512 queries, 1024 "
+                    "frames"),
+                   (16, 1, 1024, 64, {"causal": False},
+                    "seamless cross-attention decode, one query"),
+                   (16, 1024, 1024, 64, {"causal": True},
+                    "seamless decoder prefill"),
+                   (32, 1024, 1024, 96, {"causal": True},
+                    "phi-3-vision prefill, 32 heads x 96"),
+                   (64, 1024, 1024, 128, {"causal": True},
+                    "command-r / qwen2-72b / qwen3-moe prefill, 64 heads "
+                    "x 128"))
                   if dtype == torch.float32 else ())):
             cases.append(("flash_attention", f"{dn} {what} {bh}x{sq}x{sk}x"
                           f"{hd}", (rnd(bh, sq, hd), rnd(bh, sk, hd),
@@ -1973,6 +2038,39 @@ def model_kernel_cases(dev):
             sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
             cases.append(("grouped_matmul", f"{dn} {what} {gr}x{c}x{d}x{f}",
                           (rnd(gr, c, d), rnd(gr, d, f), sz), {}))
+    cases += qwen3_moe_cases(dev)
+    return cases
+
+
+def qwen3_moe_cases(dev):
+    """The grouped matmul at qwen3-moe-235b-a22b's shapes, f32: G = 128
+    experts, d 4096 -> 2 x 1536 -> 4096, at a 1024-token prefill (top-8,
+    capacity 80, the 8192 assignments spread over the experts, some
+    groups full and some empty) and at a decode step (8 live groups of
+    one row of C = 8).  One pair of expert weights (6.4 + 3.2 GB) serves
+    both, drawn on the card."""
+    G, D, F, C = 128, 4096, 1536, 80
+    g = torch.Generator().manual_seed(3)
+    gd = torch.Generator(dev).manual_seed(3)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gd, device=dev) * std
+    w_in = rnd(G, D, 2 * F, std=D ** -0.5)
+    w_out = rnd(G, F, D, std=F ** -0.5)
+    counts = torch.multinomial(torch.ones(G), 8192, replacement=True,
+                               generator=g).bincount(minlength=G)
+    prefill = torch.clamp(counts, max=C)
+    prefill[:3] = torch.tensor([0, C, 1])
+    decode = torch.zeros(G, dtype=torch.int64)
+    decode[torch.randperm(G, generator=g)[:8]] = 1
+    cases = []
+    for c, sizes, what in ((C, prefill, "prefill"), (8, decode, "decode")):
+        sz = sizes.to(torch.int32).to(dev)
+        x_in, x_out = rnd(G, c, D), rnd(G, c, F)
+        cases.append(("grouped_matmul", f"f32 qwen3-moe {what} w_in "
+                      f"{G}x{c}x{D}x{2 * F}", (x_in, w_in, sz), {}))
+        cases.append(("grouped_matmul", f"f32 qwen3-moe {what} w_out "
+                      f"{G}x{c}x{F}x{D}", (x_out, w_out, sz), {}))
     return cases
 
 
@@ -2031,11 +2129,11 @@ def library_call(name: str, kw):
     if name == "grouped_matmul":
         # the MoE buffers' padding rows are zero, so bmm agrees there
         return lambda lhs, rhs, sizes: torch.bmm(lhs, rhs)
-    if kw.get("causal", True) and not kw.get("window") \
-            and not kw.get("softcap"):
+    if not kw.get("window") and not kw.get("softcap"):
         import torch.nn.functional as F
+        causal = kw.get("causal", True)
         return lambda q, k, v, **_: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)
+            q, k, v, is_causal=causal)
     return None
 
 
@@ -2047,7 +2145,9 @@ SERVE_POWER = np.array([[50.0, 200.0], [30.0, 120.0]], np.float32)
 SERVE_MTYPES = (0, 0, 1, 1)
 
 
-SERVE_SHAPES = {"serve": (1024, 32), "serve_gemma": (2048, 32)}
+SERVE_SHAPES = {"serve": (1024, 32), "serve_gemma": (2048, 32),
+                "serve_xlstm": (1024, 32), "serve_wide": (1024, 32),
+                FRONTENDS: (1024, 32)}
 SERVE_TINY_SHAPE = (40, 6)    # prompt past the tiny window of 16
 
 
@@ -2056,28 +2156,92 @@ def serve_archs(path: str, tiny: bool):
     published and deepseek-moe-16b at its published widths cut to 8
     layers (1 dense + 7 MoE).  ``serve_gemma``: gemma3-12b and
     recurrentgemma-2b as published (48 layers; 26 layers, 8 cycles of
-    (rec, rec, local) and 2 ``rec`` layers).  Tiny forms: the configs'
-    ``tiny()``, recurrentgemma cut to 8 layers so that its stack keeps a
-    suffix."""
+    (rec, rec, local) and 2 ``rec`` layers).  ``serve_xlstm``:
+    xlstm-350m as published (24 layers, 6 cycles of (mlstm, mlstm,
+    mlstm, slstm)) and qwen2-72b at its published widths cut to 4 of 80
+    layers.  ``serve_wide``: command-r-35b at its published widths cut
+    to 4 of 40 layers and qwen3-moe-235b-a22b cut to 2 of 94.
+    ``frontends``: seamless-m4t-large-v2 (24 encoder + 24 decoder
+    layers) and phi-3-vision-4.2b (32 layers), both as published.  The
+    cuts keep all of a path's f32 weights on the card beside the
+    activations.  Tiny forms: the configs' ``tiny()``, recurrentgemma
+    cut to 8 layers so that its stack keeps a suffix."""
     from repro_torch.configs.base import get_arch
-    if path == "serve_gemma":
-        gemma, rg = get_arch("gemma3-12b"), get_arch("recurrentgemma-2b")
-        return (gemma.tiny(), rg.tiny(n_layers=8)) if tiny else (gemma, rg)
-    qwen, ds = get_arch("qwen2-1.5b"), get_arch("deepseek-moe-16b")
+    names, cuts = {
+        "serve": (("qwen2-1.5b", "deepseek-moe-16b"), (None, 8)),
+        "serve_gemma": (("gemma3-12b", "recurrentgemma-2b"), (None, None)),
+        "serve_xlstm": (("xlstm-350m", "qwen2-72b"), (None, 4)),
+        "serve_wide": (("command-r-35b", "qwen3-moe-235b-a22b"), (4, 2)),
+        FRONTENDS: (("seamless-m4t-large-v2", "phi-3-vision-4.2b"),
+                    (None, None))}[path]
+    cfgs = [get_arch(n) for n in names]
     if tiny:
-        return qwen.tiny(), ds.tiny()
-    return qwen, dataclasses.replace(ds, n_layers=8)
+        return tuple(c.tiny(n_layers=8) if c.name == "recurrentgemma-2b"
+                     else c.tiny() for c in cfgs)
+    return tuple(c if n is None else dataclasses.replace(c, n_layers=n)
+                 for c, n in zip(cfgs, cuts))
+
+
+def live_params(tree, gen):
+    """``tree`` with seeded noise of scale ``ZERO_LEAF_NOISE`` in place of
+    every all-zero leaf (biases, conv taps, norm offsets, which the
+    initializers set to 0), drawn from ``gen`` on the leaf's device.
+    With zero conv taps every mLSTM and sLSTM block adds exactly 0, and
+    a check of such a model passes whatever those blocks compute."""
+    if isinstance(tree, dict):
+        return {k: live_params(v, gen) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [live_params(v, gen) for v in tree]
+    if bool(tree.any()):
+        return tree
+    return ZERO_LEAF_NOISE * torch.randn(tree.shape, generator=gen,
+                                         device=tree.device,
+                                         dtype=tree.dtype)
+
+
+def model_params(cfg, dev, seed: int):
+    """Random weights drawn on ``dev`` from ``seed``, zero leaves noised
+    (``live_params``), every xLSTM block checked to add to its input
+    (``check_xlstm_live``)."""
+    from repro_torch.models import model as M
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = live_params(M.init_params(gen, cfg), gen)
+    check_xlstm_live(params, cfg)
+    return params
+
+
+def check_xlstm_live(params, cfg) -> None:
+    """Raise unless every mLSTM and sLSTM block of the stack gives a
+    nonzero output on a seeded input."""
+    from repro_torch.models import model as M
+    from repro_torch.models import xlstm as XL
+    lay = M.layout(cfg)
+    dev = params["embed"]["table"].device
+    x = torch.randn((1, 6, cfg.d_model),
+                    generator=torch.Generator(dev).manual_seed(0),
+                    device=dev)
+    for part, kinds in (("prefix", lay.prefix), ("cycle", lay.cycle),
+                        ("suffix", lay.suffix)):
+        for j, kind in enumerate(kinds):
+            if kind not in ("mlstm", "slstm"):
+                continue
+            blocks = params["stack"][part][j]
+            for i, p in enumerate(blocks if part == "cycle" else [blocks]):
+                fn = XL.apply_mlstm_block if kind == "mlstm" \
+                    else XL.apply_slstm_block
+                top = float(fn(p["cell"], x, cfg.n_heads)[0].abs().max())
+                if not top > 1e-3:
+                    raise AssertionError(
+                        f"{cfg.name}: {kind} block {part}[{j}][{i}] "
+                        f"outputs at most {top:.3g}: a degenerate model")
 
 
 def serve_apps(cfgs, dev, prompt_len, gen_len):
-    from repro_torch.models import model as M
     from repro_torch.serving import AppSpec
-    apps = []
-    for seed, cfg in enumerate(cfgs):
-        params = M.init_params(torch.Generator(dev).manual_seed(seed), cfg)
-        apps.append(AppSpec(cfg.name, gen_len=gen_len, arch=cfg,
-                            params=params, prompt_len=prompt_len))
-    return apps
+    return [AppSpec(cfg.name, gen_len=gen_len, arch=cfg,
+                    params=model_params(cfg, dev, seed),
+                    prompt_len=prompt_len)
+            for seed, cfg in enumerate(cfgs)]
 
 
 def serve_workload(n: int, seed: int = 0):
@@ -2099,16 +2263,113 @@ def n_params(tree) -> int:
 
 
 def expected_launches(apps, type_ids) -> dict:
-    """Launches the shapes imply: one flash attention per attention layer
-    (all but ``rec``) of a prefill, two grouped matmuls per MoE layer of
-    a prefill and of each of the ``gen_len`` decode steps."""
+    """Launches the shapes imply.  Flash attention: one per attention
+    layer (all but ``rec``, ``mlstm`` and ``slstm``) of a prefill; for an
+    encoder-decoder also one per encoder layer, and one cross-attention
+    per decoder layer of a prefill and of each of the ``gen_len`` decode
+    steps.  Grouped matmul: two per MoE layer of a prefill and of each
+    decode step."""
     out = dict.fromkeys(MODEL_KERNELS, 0)
     for t in type_ids:
         app = apps[int(t)]
-        kinds = app.arch.kinds()
-        out["flash_attention"] += len(kinds) - kinds.count("rec")
+        cfg, kinds = app.arch, app.arch.kinds()
+        out["flash_attention"] += sum(k not in ("rec", "mlstm", "slstm")
+                                      for k in kinds)
+        if cfg.is_encdec:
+            out["flash_attention"] += cfg.n_encoder_layers \
+                + len(kinds) * (1 + app.gen_len)
         out["grouped_matmul"] += 2 * kinds.count("moe") * (1 + app.gen_len)
     return out
+
+
+def frontend_batch(cfg, task: int, prompt_len: int, dev) -> dict:
+    """One request of the frontends path, drawn from
+    ``numpy.random.default_rng(task)``: a prompt, for an encoder-decoder
+    ``prompt_len`` frames of width d, for a vision model its
+    ``n_frontend_tokens`` patch embeddings, frames and patches at the
+    token embeddings' scale d**-0.5."""
+    rng = np.random.default_rng(task)
+    std = cfg.d_model ** -0.5
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (1, prompt_len))}
+    if cfg.is_encdec:
+        batch["frames"] = (std * rng.standard_normal(
+            (1, prompt_len, cfg.d_model))).astype(np.float32)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = (std * rng.standard_normal(
+            (1, cfg.n_frontend_tokens, cfg.d_model))).astype(np.float32)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+class FrontendServer:
+    """The frontends path's driver: each request's ``models/model.py``
+    ``prefill`` (with its frames or patch embeddings) and ``gen_len``
+    greedy ``decode_step``s with f32 activations, as the serving engine's
+    ``_execute`` runs a request.  The engine passes a request's tokens
+    alone, as the reference's does, so an encoder-decoder cannot be
+    served through it (ROADMAP queue C)."""
+
+    def __init__(self, apps, dev):
+        self.apps, self.dev = apps, dev
+        self.outputs: dict = {}
+        self.tokens_generated = 0
+
+    def run(self, type_ids) -> None:
+        from repro_torch.models import model as M
+        opt = M.ModelOptions(dtype=torch.float32)
+        for task, t in enumerate(type_ids):
+            app = self.apps[int(t)]
+            cfg = app.arch
+            batch = frontend_batch(cfg, task, app.prompt_len, self.dev)
+            logits, cache = M.prefill(app.params, batch, cfg, opt,
+                                      cache_len=app.prompt_len
+                                      + app.gen_len)
+            toks = []
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            for _ in range(app.gen_len):
+                toks.append(int(tok[0, 0]))
+                logits, cache = M.decode_step(app.params, cache, tok, cfg,
+                                              opt)
+                tok = torch.argmax(logits[:, -1], -1)[:, None]
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{app.name} request {task}: logits "
+                                     "not finite")
+            self.outputs[task] = np.asarray(toks, np.int32)
+            self.tokens_generated += app.gen_len
+
+
+def serve_driver(path: str, apps, dev):
+    """-> run(requests): one run of the path's driver over a workload
+    (``arrival``, ``type_id``, ``deadline``), returning (completed,
+    tokens generated, {task: tokens}, the report row or None): the
+    ``ServingEngine`` (ee_mct, run_mode real) or, for ``frontends``, a
+    ``FrontendServer`` taking the requests in order."""
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    def run(requests):
+        if path == FRONTENDS:
+            server = FrontendServer(apps, dev)
+            server.run(requests.type_id)
+            return (len(server.outputs), server.tokens_generated,
+                    server.outputs, None)
+        engine = ServingEngine(SERVE_EET, SERVE_POWER, list(SERVE_MTYPES),
+                               apps, ServeConfig(policy="ee_mct",
+                                                 run_mode="real"),
+                               device=dev)
+        rep = engine.run(requests)
+        return rep.completed, rep.tokens_generated, engine.outputs, rep.row()
+    return run
+
+
+def serve_requests(path: str, n: int, seed: int = 0):
+    """The path's requests: ``n`` Poisson requests of the two apps; the
+    frontends path takes ``FRONTEND_REQUESTS`` of each app instead."""
+    if path != FRONTENDS:
+        return serve_workload(n, seed)
+    from repro_torch.core.workload import Workload
+    k = 2 * FRONTEND_REQUESTS
+    return Workload(np.zeros(k, np.float32),
+                    np.repeat(np.arange(2), FRONTEND_REQUESTS),
+                    np.full(k, 1e6, np.float32))
 
 
 @contextlib.contextmanager
@@ -2162,11 +2423,11 @@ def serve_hooks(M, mods):
 
 
 def run_serve(mods, dev, path: str, tiny: bool, n_requests: int = 8):
-    """Drive serving path ``path`` once through ``ServingEngine.run``, the
-    model kernels' launch counts set to 0 just before and read just
-    after; returns the apps, the launches and the captured inputs."""
+    """Drive serving path ``path`` once through its driver
+    (``serve_driver``), the model kernels' launch counts set to 0 just
+    before and read just after; returns the apps, the launches and the
+    captured inputs."""
     from repro_torch.models import model as M
-    from repro_torch.serving import ServeConfig, ServingEngine
     phase = f"4 {path}"
     prompt_len, gen_len = SERVE_TINY_SHAPE if tiny else SERVE_SHAPES[path]
     cfgs = serve_archs(path, tiny)
@@ -2174,7 +2435,9 @@ def run_serve(mods, dev, path: str, tiny: bool, n_requests: int = 8):
     apps = serve_apps(cfgs, dev, prompt_len, gen_len)
     torch.cuda.synchronize()
     for app in apps:
-        log(phase, f"{app.name}: {app.arch.n_layers} layers "
+        enc = f" + {app.arch.n_encoder_layers} encoder" \
+            if app.arch.is_encdec else ""
+        log(phase, f"{app.name}: {app.arch.n_layers}{enc} layers "
             f"({', '.join(sorted(set(app.arch.kinds())))}), d "
             f"{app.arch.d_model}, heads {app.arch.n_heads}/"
             f"{app.arch.n_kv_heads} x {app.arch.hd}, vocab "
@@ -2182,31 +2445,31 @@ def run_serve(mods, dev, path: str, tiny: bool, n_requests: int = 8):
             f"parameters in f32")
     log(phase, f"weights drawn on the card in "
         f"{time.perf_counter() - t0:.2f} s")
-    wl = serve_workload(n_requests)
-    engine = ServingEngine(SERVE_EET, SERVE_POWER, list(SERVE_MTYPES), apps,
-                           ServeConfig(policy="ee_mct", run_mode="real"),
-                           device=dev)
+    wl = serve_requests(path, n_requests)
+    run = serve_driver(path, apps, dev)
     torch.cuda.reset_peak_memory_stats()
     with serve_hooks(M, mods) as (times, captured):
         for mod in mods.values():
             mod.reset_launches()
         t0 = time.perf_counter()
-        rep = engine.run(wl)
+        completed, tokens, outputs, row = run(wl)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: mods[name].launches[name]
                     for name in MODEL_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(phase, json.dumps(rep.row()))
-    log(phase, f"{rep.completed} of {rep.n_requests} requests completed, "
-        f"{rep.tokens_generated} tokens generated in {wall:.3f} s "
-        f"(synchronised); peak device memory {peak:.2f} GiB (both apps' "
-        f"weights, caches and activations); {gpu_line()}")
+    n = len(wl.type_id)
+    if row is not None:
+        log(phase, json.dumps(row))
+    log(phase, f"{completed} of {n} requests completed, {tokens} tokens "
+        f"generated in {wall:.3f} s (synchronised); peak device memory "
+        f"{peak:.2f} GiB (both apps' weights, caches and activations); "
+        f"{gpu_line()}")
     for app in apps:
         t = times.get(app.name)
         if t is None:
             raise AssertionError(f"{app.name} served no request")
-        log(phase, f"{app.name}: {len(t['prefill'])} of {rep.completed} "
+        log(phase, f"{app.name}: {len(t['prefill'])} of {completed} "
             f"completed requests; prefill {1e3 * np.mean(t['prefill']):.2f} "
             f"ms a request over {len(t['prefill'])} requests of "
             f"{prompt_len} tokens, decode "
@@ -2215,14 +2478,12 @@ def run_serve(mods, dev, path: str, tiny: bool, n_requests: int = 8):
     want = expected_launches(apps, wl.type_id)
     log(phase, f"kernel launches {json.dumps(launches)}, implied by the "
         f"shapes {json.dumps(want)}")
-    if rep.completed != rep.n_requests or len(engine.outputs) \
-            != rep.n_requests:
-        raise AssertionError(f"{rep.completed} of {rep.n_requests} requests "
-                             "completed")
-    if rep.tokens_generated != sum(apps[t].gen_len for t in wl.type_id):
+    if completed != n or len(outputs) != n:
+        raise AssertionError(f"{completed} of {n} requests completed")
+    if tokens != sum(apps[t].gen_len for t in wl.type_id):
         raise AssertionError("tokens generated != the requests' decode "
                              "lengths")
-    for task, toks in engine.outputs.items():
+    for task, toks in outputs.items():
         vocab = apps[int(wl.type_id[task])].arch.vocab_size
         if toks.shape != (gen_len,) or not ((toks >= 0)
                                             & (toks < vocab)).all():
@@ -2269,8 +2530,8 @@ def profile_serve(mods, apps, dev, path: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.workload import Workload
-    from repro_torch.serving import ServeConfig, ServingEngine
     phase = f"4 {path} profile"
+    run = serve_driver(path, apps, dev)
     saved = {name: dict(mods[name].launches) for name in MODEL_KERNELS}
     by_name: dict = {}
     n_calls = dict.fromkeys(MODEL_KERNELS, 0)
@@ -2278,14 +2539,10 @@ def profile_serve(mods, apps, dev, path: str) -> dict:
         wl = Workload(np.array([0.0], np.float32), np.array([type_id]),
                       np.array([1e6], np.float32))
         for _ in range(PROFILE_TRIES):
-            engine = ServingEngine(SERVE_EET, SERVE_POWER,
-                                   list(SERVE_MTYPES), apps,
-                                   ServeConfig(policy="ee_mct",
-                                               run_mode="real"), device=dev)
             before = {k: mods[k].launches[k] for k in MODEL_KERNELS}
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                engine.run(wl)
+                run(wl)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             calls = {k: mods[k].launches[k] - before[k]
@@ -2327,9 +2584,10 @@ def profile_serve(mods, apps, dev, path: str) -> dict:
                 if kname in n and "_kernel" in n}
         t = sum(h[0] for h in hits.values())
         in_run[kname] = t / n_calls[kname] / 1e3
+        each = ", ".join(f"{c} x {n[:60]} {tn / c / 1e3:.5f} ms"
+                         for n, (tn, c) in hits.items())
         log(phase, f"in the main path: {n_calls[kname]} {kname} calls "
-            f"({', '.join(f'{c} x {n[:60]}' for n, (_, c) in hits.items())}"
-            f"), {in_run[kname]:.5f} ms device time a call")
+            f"({each}), {in_run[kname]:.5f} ms device time a call")
     return in_run
 
 
@@ -2375,15 +2633,15 @@ def recording(M, force=None):
 
 
 def serve_card_vs_cpu(dev, path: str) -> None:
-    """The tiny apps of serving path ``path`` through the same
-    ``ServingEngine`` on the CPU and on the card, the card teacher-forced
-    with the CPU's tokens; a prompt of 40 past the tiny window of 16 and
-    6 decode steps past the ring's wrap."""
+    """The tiny apps of serving path ``path`` through the same driver on
+    the CPU and on the card, the card teacher-forced with the CPU's
+    tokens; a prompt of 40 past the tiny window of 16 and 6 decode steps
+    past the ring's wrap."""
     from repro_torch.models import model as M
-    from repro_torch.serving import AppSpec, ServeConfig, ServingEngine
+    from repro_torch.serving import AppSpec
     cfgs = serve_archs(path, tiny=True)
     prompt_len, gen_len = SERVE_TINY_SHAPE
-    cpu_params = [M.init_params(torch.Generator().manual_seed(i), c)
+    cpu_params = [model_params(c, torch.device("cpu"), i)
                   for i, c in enumerate(cfgs)]
     wl = serve_workload(5, seed=1)
     runs = {}
@@ -2391,12 +2649,10 @@ def serve_card_vs_cpu(dev, path: str) -> None:
                           ("card", [tree_to(p, dev) for p in cpu_params])):
         apps = [AppSpec(c.name, gen_len=gen_len, arch=c, params=p,
                         prompt_len=prompt_len) for c, p in zip(cfgs, params)]
-        engine = ServingEngine(SERVE_EET, SERVE_POWER, list(SERVE_MTYPES),
-                               apps, ServeConfig(policy="ee_mct",
-                                                 run_mode="real"),
-                               device="cpu" if where == "cpu" else dev)
+        run = serve_driver(path, apps, torch.device("cpu") if where == "cpu"
+                           else dev)
         with recording(M, force=runs.get("cpu")) as calls:
-            engine.run(wl)
+            run(wl)
         runs[where] = calls
     if len(runs["card"]) != len(runs["cpu"]):
         raise AssertionError("card and CPU ran different numbers of steps")
@@ -2644,6 +2900,7 @@ def run_phases(a, paths, sweeps, width, tasks, mods, dev, name,
         if path not in paths:
             continue
         # the path's weights are drawn after the previous path's are freed
+        t0 = time.perf_counter()
         apps, serve_launches[path], serve_captured[path] = run_serve(
             mods, dev, path, a.serve_tiny)
         for kname, err in recheck_model_captured(
@@ -2652,6 +2909,8 @@ def run_phases(a, paths, sweeps, width, tasks, mods, dev, name,
         in_run[path] = profile_serve(mods, apps, dev, path)
         del apps
         torch.cuda.empty_cache()
+        log(f"4 {path}", f"the path's run, re-checks and profiled windows "
+            f"took {time.perf_counter() - t0:.1f} s")
     for path in sweeps:
         if path == "es":
             continue

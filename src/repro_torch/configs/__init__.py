@@ -1,3 +1,3 @@
 """Architecture configurations of the PyTorch port (counterpart of
-``repro.configs``): the dataclasses and the registry, and the four
-configurations the serving slices run."""
+``repro.configs``): the dataclasses and the registry, and the ten
+configurations of the reference."""

@@ -4,9 +4,7 @@ Every architecture is one ``ArchConfig`` in ``configs/<id>.py``, found by
 name through ``get_arch``.  ``tiny()`` derives a reduced configuration of
 the same family for CPU tests.  The dataclasses are the reference's field
 for field, so a configuration reads the same in both packages; the
-registry loads the configurations this port has so far (qwen2-1.5b,
-deepseek-moe-16b, gemma3-12b and recurrentgemma-2b; the other six wait
-for the slices that run them).
+registry loads all ten configurations of the reference, in its order.
 The shape cells and ``cell_is_runnable`` belong to the dry-run and wait
 with it.
 """
@@ -134,8 +132,10 @@ class ArchConfig:
 
 
 _REGISTRY: dict[str, ArchConfig] = {}
-PORTED = ("qwen2_1_5b", "deepseek_moe_16b", "gemma3_12b",
-          "recurrentgemma_2b")
+PORTED = ("phi3_vision_4_2b", "qwen2_72b", "gemma3_12b", "command_r_35b",
+          "qwen2_1_5b", "recurrentgemma_2b", "xlstm_350m",
+          "seamless_m4t_large_v2", "deepseek_moe_16b",
+          "qwen3_moe_235b_a22b")
 
 
 def register_arch(cfg: ArchConfig) -> ArchConfig:
@@ -158,7 +158,7 @@ def list_archs() -> list[str]:
 
 
 def _ensure_loaded():
-    # import the ported config modules once (registration side effect)
+    # import the config modules once (registration side effect)
     import importlib
     for mod in PORTED:
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -22,7 +22,7 @@ from repro_torch.core import neural as NN
 from repro_torch.core import state as S
 from repro_torch.core.workload import task_table
 from repro_torch.launch.experiment import Replicas
-from repro_torch.models.model import layout
+from repro_torch.models.model import encoder_layout, layout
 
 
 def dynamics_from_numpy(dynamics, device="cuda") -> S.MachineDynamics:
@@ -76,7 +76,9 @@ def lm_params_from_numpy(tree, cfg, device="cuda") -> dict:
     leaves of any kind ``numpy.asarray`` reads; each cycle slot's
     parameters stacked on a leading layer axis for ``lax.scan``) as the
     port's parameters (``models/model.py``: the same keys, each cycle
-    slot a list over cycles), on ``device`` in f32."""
+    slot a list over cycles), on ``device`` in f32.  Every leaf comes
+    across, the encoder stack of an encoder-decoder model unstacked like
+    the decoder's."""
     dev = resolve_device(device)
 
     def conv(node, index=None):
@@ -89,16 +91,17 @@ def lm_params_from_numpy(tree, cfg, device="cuda") -> dict:
             a = a[index]
         return torch.as_tensor(a.copy(), device=dev)
 
-    stack = tree["stack"]
-    out = {k: conv(v) for k, v in tree.items() if k != "stack"}
-    n_cycles = layout(cfg).n_cycles
-    out["stack"] = {
-        "prefix": conv(stack["prefix"]),
-        "cycle": [[conv(slot, c) for c in range(n_cycles)]
-                  for slot in stack["cycle"]],
-        "suffix": conv(stack["suffix"]),
-    }
-    return out
+    def unstack(stack, n_cycles):
+        return {"prefix": conv(stack["prefix"]),
+                "cycle": [[conv(slot, c) for c in range(n_cycles)]
+                          for slot in stack["cycle"]],
+                "suffix": conv(stack["suffix"])}
+
+    stacks = {"stack": layout(cfg).n_cycles}
+    if "encoder" in tree:
+        stacks["encoder"] = encoder_layout(cfg).n_cycles
+    return {k: unstack(v, stacks[k]) if k in stacks else conv(v)
+            for k, v in tree.items()}
 
 
 def policy_params_from_numpy(d: dict, device="cuda"):

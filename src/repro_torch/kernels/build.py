@@ -87,11 +87,14 @@ LIBRARIES = {
     "flash_attention": {
         "flags": COMMON_FLAGS,
         "signatures": {
-            # q, k, v, o, bh, sq, sk, hd, causal, window, scale, softcap,
-            # bf16, stream
-            "e2c_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _F, _F, _I, _P),
+            # q, k, v, o, scratch, bh, sq, sk, hd, causal, window, scale,
+            # softcap, bf16, stream
+            "e2c_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _F, _F, _I, _P),
+            # bh, sq, sk, hd -> floats of scratch (long long)
+            "e2c_flash_attention_scratch": (_I, _I, _I, _I),
         },
+        "restypes": {"e2c_flash_attention_scratch": ctypes.c_longlong},
     },
     "grouped_matmul": {
         "flags": COMMON_FLAGS,

@@ -46,6 +46,25 @@
 // a row that saw no visible key has l == 0 and outputs 0.  expf and
 // tanhf, not the fast intrinsics.
 //
+// Decode (Sq <= kDecodeMaxSq; a cross-attention step has Sq = 1) takes
+// another route.  The tiled kernel gives one CTA to a (bh, 64-row query
+// tile), which walks all keys in turn: at Sq = 1 that is 16 CTAs on 132
+// SMs, each a serial loop over 1024 keys, 63 of its 64 rows idle.  One
+// query row has no tile for the tensor cores and uses each K and V
+// element once, so the call is bound by bytes: the decode kernel splits
+// the keys instead (flash decoding).  Grid (BH, key blocks, Sq), a block
+// 64, 32 or 16 keys at hd <= 64, 128, 256 (32 KB of f32 K and V).  A CTA
+// first puts every 16-byte chunk of its block's K and V in flight with
+// cp.async (a row read as a warp reaches its key keeps too few bytes in
+// flight to approach the HBM rate), then computes the logits in f32 on the CUDA cores (warp w takes keys w,
+// w + 4, ..., a lane columns lane + 32 c, one shuffle reduction a key);
+// one warp reduces the block's maximum m and sum l with shuffles; P V
+// takes a thread an output column (at hd 64 two threads a column, each
+// half of the keys).  It writes (acc, m, l) to the caller's scratch.
+// The reduce kernel merges a row's blocks in block order, rescaling each
+// by expf(m_block - m), and writes acc / l; no load waits on another
+// (a branch on l would make each one wait for the last).
+//
 // Every launcher returns cudaGetLastError() so the Python wrapper can
 // raise on a refused launch; nothing here allocates or synchronises.
 
@@ -453,6 +472,200 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+constexpr int kDecodeMaxSq = 4;      // query rows that take the decode route
+constexpr int kDecodeThreads = 128;
+
+// Keys a decode CTA takes: 32 KB of f32 K and V at every head width.
+__host__ __device__ constexpr int decode_keys(int hd) {
+  return hd <= 64 ? 64 : hd <= 128 ? 32 : 16;
+}
+
+// Scratch of the decode route, per (bh, query row, key block): hd
+// accumulator columns, then m and l.
+long long decode_scratch(int bh, int sq, int sk, int hd) {
+  if (sq > kDecodeMaxSq || sk <= 0) return 0;
+  const long long blocks = (sk + decode_keys(hd) - 1) / decode_keys(hd);
+  return (long long)bh * sq * blocks * (hd + 2);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kDecodeThreads)
+flash_attention_decode_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              float* __restrict__ part, int sq, int sk,
+                              int hd, int causal, int window, float scale,
+                              float softcap) {
+  constexpr int KB = decode_keys(HD);
+  constexpr int NW = kDecodeThreads / 32;
+  constexpr int DP = HD < kDecodeThreads ? HD : kDecodeThreads;  // columns
+  constexpr int KP = kDecodeThreads / DP;   // threads a column
+  constexpr int NC = HD / DP;               // columns a thread
+  __shared__ __align__(16) T ks[KB * HD];
+  __shared__ __align__(16) T vs[KB * HD];
+  __shared__ float qs[HD];
+  __shared__ float ps[KB];
+  __shared__ float red[KP][DP];
+  __shared__ float ml[2];   // the block's m and l
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t bh = blockIdx.x;
+  const int qp = blockIdx.z, k0 = blockIdx.y * KB;
+  const int nk = min(KB, sk - k0);
+  const T* kb = k + (bh * sk + k0) * hd;
+  const T* vb = v + (bh * sk + k0) * hd;
+
+  // Stage the block's keys and values in shared memory, every 16-byte
+  // chunk of both in flight at once (rows past nk zero).
+  if ((hd * sizeof(T)) % 16 == 0 && aligned16(k) && aligned16(v)) {
+    constexpr int CH = 16 / sizeof(T);
+    const int cpr = hd / CH;
+    for (int i = tid; i < KB * cpr; i += kDecodeThreads) {
+      const int r = i / cpr, c = (i % cpr) * CH;
+      const size_t off = size_t(min(r, nk - 1)) * hd + c;
+      const int n = r < nk ? 16 : 0;
+      cp_async16(ks + r * HD + c, kb + off, n);
+      cp_async16(vs + r * HD + c, vb + off, n);
+    }
+    cp_async_commit();
+  } else {
+    for (int i = tid; i < KB * hd; i += kDecodeThreads) {
+      const int r = i / hd, c = i % hd;
+      ks[r * HD + c] = r < nk ? kb[size_t(r) * hd + c] : zero<T>();
+      vs[r * HD + c] = r < nk ? vb[size_t(r) * hd + c] : zero<T>();
+    }
+  }
+  for (int d = tid; d < HD; d += kDecodeThreads)
+    qs[d] = d < hd ? to_f32(q[(bh * sq + qp) * hd + d]) : 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Logits, scaled, softcapped and masked (-inf: not visible).
+#pragma unroll
+  for (int i = 0; i < KB / NW; ++i) {
+    const int j = warp + NW * i;
+    float s = 0.f;
+    if (j < nk) {
+#pragma unroll
+      for (int c = 0; c < HD / 32; ++c) {
+        const int d = lane + 32 * c;
+        if (d < hd) s = fmaf(qs[d], to_f32(ks[j * HD + d]), s);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) {
+      float x = s * scale;
+      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      ps[j] = j < nk && visible(qp, k0 + j, sk, causal, window) ? x
+                                                                : -INFINITY;
+    }
+  }
+  __syncthreads();
+  // The block's maximum m and sum l, one warp: lane t holds keys t + 32 i.
+  if (warp == 0) {
+    constexpr int NL = (KB + 31) / 32;
+    float x[NL], m = -INFINITY, l = 0.f;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      x[i] = lane + 32 * i < KB ? ps[lane + 32 * i] : -INFINITY;
+      m = fmaxf(m, x[i]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const float p = x[i] > -INFINITY ? expf(x[i] - m) : 0.f;
+      if (lane + 32 * i < KB) ps[lane + 32 * i] = p;
+      l += p;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0) {
+      ml[0] = m > -INFINITY ? m : kNeg;
+      ml[1] = l;
+    }
+  }
+  __syncthreads();
+
+  // P V: thread (kp, d0) takes keys kp, kp + KP, ... of columns d0 + DP c.
+  const int d0 = tid % DP, kp = tid / DP;
+  float acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+#pragma unroll 8
+  for (int j = kp; j < nk; j += KP) {
+    const float p = ps[j];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = d0 + DP * c;
+      if (d < hd) acc[c] = fmaf(p, to_f32(vs[j * HD + d]), acc[c]);
+    }
+  }
+  if constexpr (KP > 1) {
+    red[kp][d0] = acc[0];
+    __syncthreads();
+    if (kp == 0)
+      for (int i = 1; i < KP; ++i) acc[0] += red[i][d0];
+  }
+  float* out = part + ((bh * sq + qp) * gridDim.y + blockIdx.y) * (hd + 2);
+  if (kp == 0)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = d0 + DP * c;
+      if (d < hd) out[d] = acc[c];
+    }
+  if (tid == 0) {
+    out[hd] = ml[0];
+    out[hd + 1] = ml[1];
+  }
+}
+
+// One CTA a (bh, query row): the row's key blocks merged in order.  A
+// block with no visible key has m = -1e30, l = 0 and acc = 0, so it adds
+// nothing and needs no branch: every load of the loops is independent.
+template <typename T>
+__global__ void __launch_bounds__(kDecodeThreads)
+flash_attention_reduce_kernel(const float* __restrict__ part,
+                              T* __restrict__ o, int n_blocks, int hd) {
+  const size_t row = blockIdx.x;
+  const float* pr = part + row * n_blocks * (hd + 2);
+  float mx = kNeg;
+#pragma unroll 8
+  for (int b = 0; b < n_blocks; ++b) mx = fmaxf(mx, pr[b * (hd + 2) + hd]);
+  for (int d = threadIdx.x; d < hd; d += kDecodeThreads) {
+    float a = 0.f, l = 0.f;
+#pragma unroll 8
+    for (int b = 0; b < n_blocks; ++b) {
+      const float* pb = pr + b * (hd + 2);
+      const float w = expf(pb[hd] - mx);
+      a = fmaf(w, pb[d], a);
+      l = fmaf(w, pb[hd + 1], l);
+    }
+    o[row * hd + d] = from_f32<T>(l > 0.f ? a / fmaxf(l, 1e-20f) : 0.f);
+  }
+}
+
+template <typename T, int HD>
+int launch_decode(const void* q, const void* k, const void* v, void* o,
+                  float* scratch, int bh, int sq, int sk, int hd, int causal,
+                  int window, float scale, float softcap,
+                  cudaStream_t stream) {
+  constexpr int KB = decode_keys(HD);
+  const int n_blocks = (sk + KB - 1) / KB;
+  flash_attention_decode_kernel<T, HD>
+      <<<dim3(bh, n_blocks, sq), kDecodeThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), scratch, sq, sk, hd, causal, window,
+          scale, softcap);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  flash_attention_reduce_kernel<T>
+      <<<bh * sq, kDecodeThreads, 0, stream>>>(scratch, static_cast<T*>(o),
+                                               n_blocks, hd);
+  return int(cudaGetLastError());
+}
+
 template <typename T, int HD, int BK, int KS>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int sq, int sk, int hd, int causal, int window, float scale,
@@ -483,10 +696,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 // KB of shared memory, bf16 81 and 153 KB) and of 8 at hd 256 (f32 195
 // KB, bf16 99 KB).
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int sq, int sk, int hd, int causal, int window, float scale,
-             float softcap, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* scratch, int bh, int sq, int sk, int hd, int causal,
+             int window, float scale, float softcap, cudaStream_t stream) {
   constexpr bool f32 = is_f32<T>();
+  if (decode_scratch(bh, sq, sk, hd) > 0) {
+    if (hd <= 64)
+      return launch_decode<T, 64>(q, k, v, o, scratch, bh, sq, sk, hd,
+                                  causal, window, scale, softcap, stream);
+    if (hd <= 128)
+      return launch_decode<T, 128>(q, k, v, o, scratch, bh, sq, sk, hd,
+                                   causal, window, scale, softcap, stream);
+    if (hd <= 256)
+      return launch_decode<T, 256>(q, k, v, o, scratch, bh, sq, sk, hd,
+                                   causal, window, scale, softcap, stream);
+    return int(cudaErrorInvalidValue);
+  }
   if (hd <= 64)
     return launch<T, 64, f32 ? 16 : 32, 4>(q, k, v, o, bh, sq, sk, hd,
                                            causal, window, scale, softcap,
@@ -510,16 +735,23 @@ const char* e2c_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Floats of scratch a call needs (the decode route's partial blocks; 0
+// for the tiled kernel).
+long long e2c_flash_attention_scratch(int bh, int sq, int sk, int hd) {
+  return decode_scratch(bh, sq, sk, hd);
+}
+
 int e2c_flash_attention(const void* q, const void* k, const void* v, void* o,
-                        int bh, int sq, int sk, int hd, int causal,
-                        int window, float scale, float softcap, int bf16,
-                        void* stream) {
+                        void* scratch, int bh, int sq, int sk, int hd,
+                        int causal, int window, float scale, float softcap,
+                        int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  auto ws = static_cast<float*>(scratch);
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, bh, sq, sk, hd, causal,
+    return dispatch<__nv_bfloat16>(q, k, v, o, ws, bh, sq, sk, hd, causal,
                                    window, scale, softcap, s);
-  return dispatch<float>(q, k, v, o, bh, sq, sk, hd, causal, window, scale,
-                         softcap, s);
+  return dispatch<float>(q, k, v, o, ws, bh, sq, sk, hd, causal, window,
+                         scale, softcap, s);
 }
 
 }  // extern "C"

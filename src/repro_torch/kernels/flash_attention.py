@@ -7,7 +7,9 @@ of ``repro/kernels/ops.py::flash_attention``: q (BH, Sq, hd), k and v
 heads first), positions ``0..S-1`` in both q and k.  The kernel lives in
 ``csrc/flash_attention.cu``; its header says what bounds it on the H100
 and how the Pallas kernel's sequential key-block carry and block skip
-became a loop inside one CTA per (bh, query tile).
+became a loop inside one CTA per (bh, query tile); a call of at most 4
+query rows (a decode step's cross-attention) splits the keys over CTAs
+instead and merges their blocks in a second kernel.
 
 A tensor on the CPU goes to ``flash_attention_ref``, the dense masked
 softmax of ``repro/kernels/ref.py::flash_attention_ref``; a CUDA tensor
@@ -109,10 +111,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if bh and sq:
-        build.check(build.load("flash_attention").e2c_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-            sk, hd, int(causal), int(window), hd ** -0.5, float(softcap),
-            int(q.dtype == torch.bfloat16),
+        lib = build.load("flash_attention")
+        # the decode route's partial key blocks (none for the tiled kernel)
+        scratch = torch.empty(lib.e2c_flash_attention_scratch(bh, sq, sk, hd),
+                              dtype=torch.float32, device=q.device)
+        build.check(lib.e2c_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), bh, sq, sk, hd, int(causal), int(window),
+            hd ** -0.5, float(softcap), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream),
             "flash_attention", "flash_attention")
         launches["flash_attention"] += 1

@@ -1,17 +1,18 @@
-"""Shared model primitives: norms, RoPE, gated MLPs, embeddings.
+"""Shared model primitives: norms, RoPE, MLPs, embeddings.
 
-The subset of ``repro/models/layers.py`` that the ported configurations
-use: RMSNorm and its head-wise QK-norm form, bias-free gated MLPs, plain
-linear maps and the causal temporal convolution of the RG-LRU block
-(LayerNorm and the plain MLP wait for the configurations that use
-them).  Parameters are plain dicts of tensors with the reference's
-names and layouts (``wi`` (d, 2, d_ff) holds gate and up side by side).
-Initializers draw from an explicit ``torch.Generator`` at the
-reference's scales: fan-in ``fan**-0.5``, embeddings ``d**-0.5``, norms,
-biases and conv taps zero.  They give other numbers than ``jax.random``
-for the same seed; tests carry the reference's weights across with
-``interop.lm_params_from_numpy``.  The ``Ax`` logical-axis annotations
-are sharding machinery and wait for the ``torch.distributed`` slice.
+The serving half of ``repro/models/layers.py``: RMSNorm and its
+head-wise QK-norm form, LayerNorm, the xLSTM blocks' GroupNorm, gated
+and plain (biased) MLPs, linear maps and the causal temporal
+convolution of the RG-LRU and xLSTM blocks.  Parameters are plain dicts
+of tensors with the reference's names and layouts (``wi`` (d, 2, d_ff)
+holds gate and up side by side).  Initializers draw from an explicit
+``torch.Generator`` at the reference's scales: fan-in ``fan**-0.5``,
+embeddings ``d**-0.5``; RMSNorm scales, biases and conv taps zero,
+LayerNorm and GroupNorm scales one.  They give other numbers than
+``jax.random`` for the same seed; tests carry the reference's weights
+across with ``interop.lm_params_from_numpy``.  The ``Ax`` logical-axis
+annotations are sharding machinery and wait for the
+``torch.distributed`` slice.
 
 Products take the activation's dtype for both operands, as the
 reference's ``einsum(..., preferred_element_type=float32)`` does, and
@@ -49,25 +50,27 @@ def zeros_init(shape, *, dtype=torch.float32, device=None) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Norms
 # --------------------------------------------------------------------------
-def _check_norm(kind: str) -> None:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported to "
-                                  "repro_torch yet (ROADMAP queue A16)")
-
-
 def init_norm(kind: str, d: int, *, dtype=torch.float32,
               device=None) -> dict:
-    _check_norm(kind)
-    return {"scale": zeros_init((d,), dtype=dtype, device=device)}
+    if kind == "rmsnorm":                               # (1 + scale) form
+        return {"scale": zeros_init((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": zeros_init((d,), dtype=dtype, device=device)}
 
 
 def apply_norm(kind: str, p: dict, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in the ``(1 + scale)`` form, f32 inside."""
-    _check_norm(kind)
+    """RMSNorm in the ``(1 + scale)`` form, or LayerNorm with scale and
+    bias (``kind == "layernorm"``, the population variance); f32 inside."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * (1.0 + p["scale"].float())
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * (1.0 + p["scale"].float())
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].float() \
+            + p["bias"].float()
     return y.to(x.dtype)
 
 
@@ -79,6 +82,18 @@ def rms_norm_headwise(scale: torch.Tensor, x: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return y.to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the channel axis (xLSTM blocks), no bias, f32
+    inside."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, n_groups, d // n_groups)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y.reshape(*lead, d) * scale.float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -134,6 +149,21 @@ def apply_gated_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     return h @ p["wo"].to(x.dtype)
 
 
+def init_plain_mlp(gen: torch.Generator, d: int, d_ff: int, *,
+                   dtype=torch.float32) -> dict:
+    """Non-gated 2-layer MLP with biases (seamless / classic
+    transformer)."""
+    return {"wi": fanin_init(gen, (d, d_ff), dtype=dtype),
+            "wo": fanin_init(gen, (d_ff, d), dtype=dtype),
+            "bi": zeros_init((d_ff,), dtype=dtype, device=gen.device),
+            "bo": zeros_init((d,), dtype=dtype, device=gen.device)}
+
+
+def apply_plain_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = act_fn(act)(x @ p["wi"].to(x.dtype) + p["bi"].to(x.dtype))
+    return h @ p["wo"].to(x.dtype) + p["bo"].to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # Embeddings
 # --------------------------------------------------------------------------
@@ -169,7 +199,7 @@ def init_lm_head(gen: torch.Generator, d: int, vocab: int, *,
 
 
 # --------------------------------------------------------------------------
-# Causal temporal conv (RG-LRU blocks)
+# Causal temporal conv (RG-LRU and xLSTM blocks)
 # --------------------------------------------------------------------------
 def init_conv1d(width: int, d: int, *, dtype=torch.float32,
                 device=None) -> dict:

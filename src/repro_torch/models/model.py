@@ -13,8 +13,16 @@ parameters on a leading layer axis for ``lax.scan``; here a Python loop
 runs the layers, so the parameters and caches of a cycle slot are a list
 over cycles: ``stack["cycle"][j][c]`` is slot j of cycle c.
 ``interop.lm_params_from_numpy`` unstacks the reference's tree.
-``loss_fn``, ``chunked_ce_loss`` and the encoder-decoder and vision
-branches wait for the training slice (ROADMAP queue A16).
+
+An encoder-decoder model (``cfg.is_encdec``) has an ``encoder`` stack of
+``n_encoder_layers`` global blocks and its ``enc_norm``: ``prefill``
+runs it non-causally over ``batch["frames"]`` (B, S_enc, d) and every
+decoder block cross-attends to its output, whose keys and values the
+prefill cache keeps (``ck``/``cv``) for decode.  A vision model
+(``cfg.frontend == "vision"``) takes ``batch["patch_embeds"]`` (B, P,
+d) in place of its first P token embeddings.  ``loss_fn`` and
+``chunked_ce_loss`` wait for the training slice (ROADMAP queue A, item
+11.5).
 """
 from __future__ import annotations
 
@@ -46,36 +54,43 @@ def layout(cfg: ArchConfig) -> StackLayout:
     return StackLayout(prefix, cyc, n_cycles, suffix)
 
 
-def _check_arch(cfg: ArchConfig) -> None:
-    if cfg.is_encdec or cfg.frontend is not None:
-        raise T.not_ported("encoder-decoder and vision models",
-                           "queue A16: encoder-decoder, vision")
+def encoder_layout(cfg: ArchConfig) -> StackLayout:
+    return StackLayout((), ("global",), cfg.n_encoder_layers, ())
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+def _init_stack(gen: torch.Generator, cfg: ArchConfig, lay: StackLayout, *,
+                with_cross: bool = False, dtype=torch.float32) -> dict:
+    def block(kind):
+        return T.init_block(gen, kind, cfg, with_cross=with_cross,
+                            dtype=dtype)
+    return {"prefix": [block(k) for k in lay.prefix],
+            "cycle": [[block(k) for _ in range(lay.n_cycles)]
+                      for k in lay.cycle],
+            "suffix": [block(k) for k in lay.suffix]}
+
+
 def init_lm(gen: torch.Generator, cfg: ArchConfig, *,
             dtype=torch.float32) -> dict:
     """Random weights at the reference's scales, drawn from ``gen`` on
     its device, stored in ``dtype``."""
-    _check_arch(cfg)
-    lay = layout(cfg)
-
-    def block(kind):
-        return T.init_block(gen, kind, cfg, dtype=dtype)
-
+    dev = gen.device
     p = {"embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                    dtype=dtype),
-         "stack": {"prefix": [block(k) for k in lay.prefix],
-                   "cycle": [[block(k) for _ in range(lay.n_cycles)]
-                             for k in lay.cycle],
-                   "suffix": [block(k) for k in lay.suffix]},
+         "stack": _init_stack(gen, cfg, layout(cfg),
+                              with_cross=cfg.is_encdec, dtype=dtype),
          "final_norm": L.init_norm(cfg.norm, cfg.d_model, dtype=dtype,
-                                   device=gen.device)}
+                                   device=dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.init_lm_head(gen, cfg.d_model, cfg.vocab_size,
                                       dtype=dtype)
+    if cfg.is_encdec:
+        p["encoder"] = _init_stack(gen, cfg, encoder_layout(cfg),
+                                   dtype=dtype)
+        p["enc_norm"] = L.init_norm(cfg.norm, cfg.d_model, dtype=dtype,
+                                    device=dev)
     return p
 
 
@@ -91,11 +106,14 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
 # Cache
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch: int, s_cache: int,
-               dtype=torch.bfloat16, device=None) -> dict:
+               dtype=torch.bfloat16, device=None, s_enc: int = 0) -> dict:
+    """A decode cache; ``s_enc`` is the encoder length of an
+    encoder-decoder model's cross-attention keys."""
     lay = layout(cfg)
 
     def mk(kind):
         return T.init_block_cache(kind, cfg, batch, s_cache, dtype,
+                                  with_cross=cfg.is_encdec, s_enc=s_enc,
                                   device=device)
     return {"prefix": [mk(k) for k in lay.prefix],
             "cycle": [[mk(k) for _ in range(lay.n_cycles)]
@@ -109,15 +127,18 @@ def init_cache(cfg: ArchConfig, batch: int, s_cache: int,
 # ---------------------------------------------------------------------------
 def apply_stack(stack_p, x, *, cfg: ArchConfig, opt: ModelOptions,
                 positions, mode: str, lay: StackLayout, cache=None,
+                memory=None, causal: bool = True, with_cross: bool = False,
                 cache_len: int | None = None):
-    """-> (x, new_cache, aux): every layer in order, a Python loop."""
+    """-> (x, new_cache, aux): every layer in order, a Python loop.  The
+    cache is None in ``"train"`` mode."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {"prefix": [], "cycle": [[] for _ in lay.cycle],
                        "suffix": []}
 
     def run(kind, bp, x, c):
         return T.apply_block(kind, bp, x, cfg, opt, positions, mode=mode,
-                             cache=c, cache_len=cache_len)
+                             cache=c, memory=memory, causal=causal,
+                             with_cross=with_cross, cache_len=cache_len)
 
     for j, kind in enumerate(lay.prefix):
         x, nc, a = run(kind, stack_p["prefix"][j], x,
@@ -135,16 +156,31 @@ def apply_stack(stack_p, x, *, cfg: ArchConfig, opt: ModelOptions,
                        cache["suffix"][j] if cache else None)
         aux = aux + a
         new_cache["suffix"].append(nc)
-    return x, new_cache, aux
+    return x, None if mode == "train" else new_cache, aux
 
 
 # ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------
 def _embed_inputs(params, batch: dict, cfg: ArchConfig, opt: ModelOptions):
-    _check_arch(cfg)
-    return L.embed_tokens(params["embed"], batch["tokens"],
-                          scale=cfg.embed_scale, dtype=opt.dtype)
+    x = L.embed_tokens(params["embed"], batch["tokens"],
+                       scale=cfg.embed_scale, dtype=opt.dtype)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(opt.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
+
+
+def encode(params, frames, cfg: ArchConfig, opt: ModelOptions):
+    """The encoder over ``frames`` (B, S_enc, d), non-causal, then
+    ``enc_norm``: the memory every decoder block cross-attends to."""
+    m = frames.to(opt.dtype)
+    B, S = m.shape[0], m.shape[1]
+    pos = torch.arange(S, device=m.device)[None].expand(B, S)
+    memory, _, _ = apply_stack(params["encoder"], m, cfg=cfg, opt=opt,
+                               positions=pos, mode="train",
+                               lay=encoder_layout(cfg), causal=False)
+    return L.apply_norm(cfg.norm, params["enc_norm"], memory, cfg.norm_eps)
 
 
 def _logits(params, x, cfg: ArchConfig):
@@ -158,15 +194,19 @@ def _logits(params, x, cfg: ArchConfig):
 @torch.no_grad()
 def prefill(params, batch: dict, cfg: ArchConfig, opt: ModelOptions,
             cache_len: int | None = None):
-    """Forward over the prompt ``batch["tokens"]`` (B, S); returns
-    (last-token logits (B, 1, V) f32, cache).  ``cache_len`` sets the
-    decode-cache capacity (>= prompt length)."""
+    """Forward over the prompt ``batch["tokens"]`` (B, S) (with
+    ``"frames"`` for an encoder-decoder, optional ``"patch_embeds"`` for
+    a vision model); returns (last-token logits (B, 1, V) f32, cache).
+    ``cache_len`` sets the decode-cache capacity (>= prompt length)."""
     lay = layout(cfg)
+    memory = encode(params, batch["frames"], cfg, opt) if cfg.is_encdec \
+        else None
     x = _embed_inputs(params, batch, cfg, opt)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     x, cache, _ = apply_stack(params["stack"], x, cfg=cfg, opt=opt,
                               positions=positions, mode="prefill", lay=lay,
+                              memory=memory, with_cross=cfg.is_encdec,
                               cache_len=cache_len)
     x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, x[:, -1:], cfg)
@@ -184,8 +224,17 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, opt: ModelOptions):
                        dtype=opt.dtype)
     x, new_cache, _ = apply_stack(params["stack"], x, cfg=cfg, opt=opt,
                                   positions=pos[:, None], mode="decode",
-                                  lay=lay, cache=cache)
+                                  lay=lay, cache=cache,
+                                  with_cross=cfg.is_encdec)
     x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, x, cfg)
     new_cache["pos"] = pos + 1
     return logits, new_cache
+
+
+def loss_fn(params, batch: dict, cfg: ArchConfig, opt: ModelOptions):
+    """The training loss; ``mode="train"`` runs the stack's forward pass
+    already, the loss and its chunked cross-entropy wait for their
+    slice."""
+    raise NotImplementedError("loss_fn is not ported to repro_torch yet "
+                              "(ROADMAP queue A, item 11.5: training)")

@@ -52,6 +52,13 @@ def test_port_imports_no_jax_and_no_reference():
                  "repro_torch.kernels.fma", "repro_torch.models.rglru",
                  "repro_torch.configs.gemma3_12b",
                  "repro_torch.configs.recurrentgemma_2b",
+                 "repro_torch.models.xlstm",
+                 "repro_torch.configs.xlstm_350m",
+                 "repro_torch.configs.command_r_35b",
+                 "repro_torch.configs.qwen2_72b",
+                 "repro_torch.configs.qwen3_moe_235b_a22b",
+                 "repro_torch.configs.phi3_vision_4_2b",
+                 "repro_torch.configs.seamless_m4t_large_v2",
                  "repro_torch.core.ref_engine", "repro_torch.core.metrics",
                  "repro_torch.serving", "repro_torch.serving.engine"):
         assert name in result["modules"]

@@ -129,29 +129,73 @@ def cache_leaves(cache, n_cycles=None):
     return out + [cache["pos"]]
 
 
-def run_both(cfg, jcfg, prompt_len=PROMPT, n_decode=DECODE, seed=0):
+def jitter_zero_leaves(jparams, jitter: float, seed: int):
+    """Seeded noise of scale ``jitter`` on every all-zero leaf of a JAX
+    parameter tree (biases, conv taps, norm offsets, which the reference
+    initializes to zero); the tree itself when ``jitter`` is 0."""
+    if not jitter:
+        return jparams
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda a: a if np.asarray(a).any() else jnp.asarray(
+            jitter * rng.standard_normal(a.shape), a.dtype), jparams)
+
+
+def assert_xlstm_live(params, cfg) -> None:
+    """Every mLSTM and sLSTM block of the port's stack adds a nonzero
+    output on a seeded input.  With the initializers' zero conv taps and
+    biases each adds exactly 0, and a check of the model would pass
+    whatever the blocks compute."""
+    from repro_torch.models import xlstm as TXL
+    lay = TM.layout(cfg)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (1, 6, cfg.d_model)).astype(np.float32))
+    for part, kinds in (("prefix", lay.prefix), ("cycle", lay.cycle),
+                        ("suffix", lay.suffix)):
+        for j, kind in enumerate(kinds):
+            if kind not in ("mlstm", "slstm"):
+                continue
+            blocks = params["stack"][part][j]
+            for p in blocks if part == "cycle" else [blocks]:
+                fn = TXL.apply_mlstm_block if kind == "mlstm" \
+                    else TXL.apply_slstm_block
+                y = fn(p["cell"], x, cfg.n_heads)[0]
+                assert float(y.abs().max()) > 1e-3, (cfg.name, part, j)
+
+
+def run_both(cfg, jcfg, prompt_len=PROMPT, n_decode=DECODE, seed=0,
+             extra=None, jitter=0.0, **opt_kw):
     """The tiny model ``cfg`` through the JAX package (jitted, its own
     ``init_params``) and the port (the same weights carried across):
     prefill with ``cache_len = prompt + n_decode``, then ``n_decode``
-    greedy steps fed the JAX model's tokens.  -> a list of (what, port
-    output, JAX output) pairs: logits, then every cache leaf."""
-    jparams = jax.jit(lambda key: JM.init_params(key, jcfg)[0])(
-        jax.random.PRNGKey(seed))
+    greedy steps fed the JAX model's tokens.  ``extra``: more numpy
+    inputs of the batch (``frames``, ``patch_embeds``); ``opt_kw``: more
+    ``ModelOptions`` fields for both; ``jitter`` > 0: seeded noise of
+    that scale on every all-zero leaf (biases, conv taps, RMSNorm
+    scales), which the reference initializes to zero.  -> a list of
+    (what, port output, JAX output) pairs: logits, then every cache
+    leaf."""
+    jparams = jitter_zero_leaves(
+        jax.jit(lambda key: JM.init_params(key, jcfg)[0])(
+            jax.random.PRNGKey(seed)), jitter, seed + 9)
     params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray,
                                                          jparams),
                                   cfg, device="cpu")
-    jopt = JM.ModelOptions(dtype=jnp.float32, remat=False)
-    opt = TM.ModelOptions(dtype=torch.float32)
+    assert_xlstm_live(params, cfg)
+    jopt = JM.ModelOptions(dtype=jnp.float32, remat=False, **opt_kw)
+    opt = TM.ModelOptions(dtype=torch.float32, **opt_kw)
     cl = prompt_len + n_decode
     prompt = np.random.default_rng(seed + 4).integers(0, cfg.vocab_size,
                                                       (2, prompt_len))
-    jprefill = jax.jit(lambda p, t: JM.prefill(p, {"tokens": t}, jcfg, jopt,
+    batch = {"tokens": prompt, **(extra or {})}
+    jprefill = jax.jit(lambda p, b: JM.prefill(p, b, jcfg, jopt,
                                                cache_len=cl))
     jdecode = jax.jit(lambda p, c, t: JM.decode_step(p, c, t, jcfg, jopt))
     n_cycles = TM.layout(cfg).n_cycles
-    jl, jc = jprefill(jparams, jnp.asarray(prompt, jnp.int32))
-    tl, tc = TM.prefill(params, {"tokens": torch.as_tensor(prompt)}, cfg,
-                        opt, cache_len=cl)
+    jl, jc = jprefill(jparams, {k: jnp.asarray(v) for k, v in
+                                batch.items()})
+    tl, tc = TM.prefill(params, {k: torch.as_tensor(v) for k, v in
+                                 batch.items()}, cfg, opt, cache_len=cl)
     pairs = []
 
     def record(what, tl, tc, jl, jc):

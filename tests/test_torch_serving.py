@@ -8,11 +8,12 @@ package's, on the CPU.
 * ``ServingEngine`` in ``run_mode="sim"`` against the JAX engine on the
   traces of ``tests/test_serving.py``: every ``ServeReport`` field equal
   (tolerance 0), but ``wall_seconds``, the host's clock.
-* ``run_mode="real"`` with tiny qwen2-1.5b and tiny deepseek-moe-16b on
-  the JAX package's weights: each request's greedy tokens equal the JAX
-  engine's wherever the JAX model's top-2 logit margin exceeds 1e-3 (up
-  to the first step where a smaller margin lets them part, after which
-  the two continue from different prefixes).
+* ``run_mode="real"`` with tiny qwen2-1.5b and tiny deepseek-moe-16b,
+  and with tiny xlstm-350m and tiny command-r-35b, on the JAX package's
+  weights: the same report row, and each request's greedy tokens equal
+  the JAX engine's wherever the JAX model's top-2 logit margin exceeds
+  1e-3 (up to the first step where a smaller margin lets them part,
+  after which the two continue from different prefixes).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 from conftest import make_instance
+from test_torch_local_attention import assert_xlstm_live, jitter_zero_leaves
 
 from repro.configs.base import get_arch as jax_get_arch
 from repro.core import ref_engine as R
@@ -60,11 +62,13 @@ def test_ref_engine_equals_reference(policy):
             np.testing.assert_array_equal(g, w, err_msg=f.name)
 
 
-def _jax_init(cfg, seed):
+def _jax_init(cfg, seed, jitter=0.0):
     """The JAX package's ``init_params`` weights, jitted (its eager run
-    takes ten times as long on the CPU)."""
-    return jax.jit(lambda key: JM.init_params(key, cfg)[0])(
+    takes ten times as long on the CPU), with ``jitter``: seeded noise
+    on the zero-initialized leaves."""
+    params = jax.jit(lambda key: JM.init_params(key, cfg)[0])(
         jax.random.PRNGKey(seed))
+    return jitter_zero_leaves(params, jitter, seed + 9)
 
 
 
@@ -154,17 +158,22 @@ def _jax_greedy(engine, type_id, params, cfg, prompt, gen_len):
     return np.asarray(toks), np.asarray(margins)
 
 
-def test_real_mode_tokens_match_reference():
-    archs = ("qwen2-1.5b", "deepseek-moe-16b")
+def _real_mode_matches_reference(archs, seed=3, jitter=0.0):
+    """Two tiny apps through both engines in ``run_mode="real"`` on the
+    JAX package's weights (``jitter``: noise on the zero-initialized
+    leaves): the same report row, and each request's greedy tokens equal
+    the JAX engine's wherever its top-2 margin exceeds ``MARGIN``."""
     jcfgs = [jax_get_arch(a).tiny() for a in archs]
     cfgs = [get_arch(a).tiny() for a in archs]
-    jparams = [_jax_init(c, i) for i, c in enumerate(jcfgs)]
+    jparams = [_jax_init(c, i, jitter) for i, c in enumerate(jcfgs)]
     params = [lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, p),
                                    c, device="cpu")
               for p, c in zip(jparams, cfgs)]
+    for p, c in zip(params, cfgs):
+        assert_xlstm_live(p, c)
     gen, plen = 4, 8
     eet = np.array([[0.3, 0.6], [0.5, 0.4]], np.float32)
-    wl = poisson_workload(5, rate=1.0, n_task_types=2, slack=10.0, seed=3)
+    wl = poisson_workload(5, rate=1.0, n_task_types=2, slack=10.0, seed=seed)
     assert set(wl.type_id.tolist()) == {0, 1}
     cfg = dict(policy="mct", run_mode="real")
     jeng = JServingEngine(eet, POWER, [0, 1], [
@@ -177,6 +186,7 @@ def test_real_mode_tokens_match_reference():
     want, got = jeng.run(wl), eng.run(wl)
     assert got.completed == want.completed == 5
     assert got.tokens_generated == want.tokens_generated == 5 * gen
+    assert got.row() == want.row()
     assert sorted(eng.outputs) == sorted(jeng.outputs)
     for task, toks in eng.outputs.items():
         t = int(wl.type_id[task])
@@ -191,3 +201,16 @@ def test_real_mode_tokens_match_reference():
                 assert toks[i] == ref_toks[i], (task, i, margins[i])
             elif toks[i] != ref_toks[i]:
                 break
+
+
+def test_real_mode_tokens_match_reference():
+    _real_mode_matches_reference(("qwen2-1.5b", "deepseek-moe-16b"))
+
+
+def test_real_mode_xlstm_and_command_r_match_reference():
+    """xlstm-350m (mLSTM and sLSTM blocks) and command-r-35b (parallel
+    blocks, LayerNorm) served through both engines, with noise on the
+    zero-initialized leaves so that every xLSTM block adds to the
+    residual."""
+    _real_mode_matches_reference(("xlstm-350m", "command-r-35b"),
+                                 jitter=0.1)
