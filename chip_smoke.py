@@ -15,10 +15,12 @@
     python3 chip_smoke.py --paths serve_gemma --serve-tiny         # short
     python3 chip_smoke.py --paths serve_xlstm,serve_wide,frontends \
         --serve-tiny                                               # short
+    python3 chip_smoke.py --paths train                  # training
+    python3 chip_smoke.py --paths train --train-tiny     # short
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device: the card's name and power limit;
-  2. build: nvcc builds the four CUDA libraries from
+  2. build: nvcc builds the five CUDA libraries from
      ``src/repro_torch/kernels/csrc``, one nvcc each, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card:
      the five scheduling kernels bitwise, on random and edge-case inputs
@@ -43,13 +45,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      x 1024 x 128 prefill of command-r, qwen2-72b and qwen3-moe; the
      grouped matmul also at qwen3-moe's G = 128 experts, d 4096 -> 3072
      and 1536 -> 4096, at a 1024-token prefill (C = 80) and a decode
-     step (8 live groups of one row);
+     step (8 live groups of one row); the flash backward
+     (``flash_attention_bwd``, three kernels) against its plain twin at
+     max|dX - dX_ref| <= 1e-4 max|dX_ref| (f32) and 2e-2 (bf16) for
+     each of dq, dk, dv, each case launched twice with bitwise-equal
+     results and the forward with ``lse`` bitwise the forward without:
+     the train path's causal 24 x 4096 x 128 in bf16 and f32, causal
+     with window 1024 and softcap 50 at hd 256, the same with softcap 5
+     on logits of std 4 (where a missing 1 - tanh^2 shows), non-causal
+     with Sq = Sk and Sq < Sk, head widths 64, 96, 37 and 100, S = 1000,
+     rows with no visible key; a flash call under grad has a ``grad_fn`` whose
+     backward launches the kernels, and the grouped matmul refuses grad
+     on the card;
   4. main paths, each driven through its entry point with the launch
      counts set to 0 just before it and read just after, every kernel of
      the path launched, and kernel inputs captured from the run
      re-checked against the plain versions:
-       flat      ``run_experiment``, 4096 replicas x 1024 tasks x 32
-                 machines, ten policies;
+       flat      ``run_experiment``, 4096 replicas x 512 tasks x 32
+                 machines, ten policies (``--tasks``: 512 for the time
+                 limit, 1024 before the train path);
        scenario  the same width with a ``ScenarioAxis`` (fail rates 0,
                  0.05, 0.1 x DVFS nominal, powersave, turbo, half the
                  replicas on spot machines), ten policies;
@@ -94,7 +108,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  read of the aggregate; ``ChunkedStats`` and the seconds
                  of each chunk beside the flat path's execute seconds;
        learned   ``run_experiment`` of the flat spec's draws at 4096
-                 replicas x 1024 tasks x 32 machines with
+                 replicas x 512 tasks x 32 machines with
                  ``PolicyAxis(("mlp", "linear"))`` and shared random
                  weights (``neural.init_params(0)``, drawn on the host):
                  the path launches ``masked_argmin``, ``fused_start_pick``,
@@ -151,6 +165,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  layers) with 576 seeded patch embeddings spliced over
                  its first positions; every request's tokens in the
                  vocabulary and its last logits finite;
+       train     ``launch/train.py``: qwen2-1.5b as published (28
+                 layers), bf16 compute with the f32 master and moments,
+                 remat on, random weights from seed 0 with the zero
+                 leaves noised, the port's synthetic ``TokenStream`` at
+                 ``train_4k``'s 4096 tokens, 8 sequences a step (cut
+                 from its 256) in 4 microbatches of 2, ``AdamWConfig()``
+                 with warmup 2: one ``loss_fn`` gradient of a
+                 microbatch first (every parameter leaf finite and
+                 nonzero), then 4 steps of ``build_train_step`` (loss,
+                 grad_norm, update_skipped = 0, seconds, tokens/s, peak
+                 memory each), flash forward and backward launches as
+                 the shapes imply (remat runs the forward twice), then
+                 one profiled step (idle share, top device operations);
   5. card vs CPU (run last, after phase 6, so that no timed or profiled
      window shares the card or the host with it; phase 6 read lost
      profiler records when it ran after this phase): a
@@ -189,7 +216,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      of 16, 6 tokens past the ring's wrap), the card teacher-forced with
      the CPU's tokens, must agree on every logit to atol = rtol = 1e-4
      and on the greedy token wherever the CPU's top-2 margin exceeds
-     1e-3;
+     1e-3; with the train path, tiny qwen2-1.5b in f32 (zero leaves
+     noised, 4 x 64 tokens, remat): the loss within 1e-5 relative and
+     every gradient leaf within 1e-4 of its largest value of the CPU
+     port's, and ``adamw_update`` on the card fed the CPU's gradients
+     equal to the CPU's at rtol 1e-6;
   6. timings: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call, on the inputs of the
      captured main-path call with the most work, rotated over copies
@@ -199,12 +230,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      model kernels' row also lists every captured call); for the
      scheduling kernels also the host time per call of each wrapper (5
      rounds of 1000 calls, no synchronisation) and the launch floor: an
-     empty kernel at the kernel's grid, timed the same ways.
+     empty kernel at the kernel's grid, timed the same ways; for the
+     flash backward, at the train path's captured shape in bf16 and
+     again in f32, the kernel, its plain twin and autograd through
+     ``scaled_dot_product_attention`` (its backward only).  The flash
+     rows' library call is SDPA on 4-D views with its fused kernel
+     pinned (``sdpa``): FlashAttention-2 in bf16, the memory-efficient
+     kernel in f32.
 After 4 a profiled window of each path (the sweeps' first 32 event
 steps, the workflow path's first 8, the chunked path's at 2048 replicas
 in two chunks of 1024 with their normalization, the learned path's
-first 32; one request of each app, one app at a time)
-gives the device's busy and idle share.
+first 32; one request of each app, one app at a time; the train path's
+fifth step) gives the device's busy and idle share.
 The workflow path's fork-join and map-reduce shapes run only in phase 5:
 at 1024 tasks they pad every parent table to K = 1022 (17 GB at 4096
 replicas) and their ranks take an N x K host loop a cell.
@@ -252,12 +289,15 @@ CHUNKED_PROFILE = (2048, 1024)   # the chunked profile's replicas, chunk
 # the workflow path's first 32 steps launch some 670000 device
 # activities, whose profiler records take 2.5 min to read: 8 steps
 WORKFLOW_PROFILE_STEPS = 8
-PROFILE_TRIES = 3      # profiled serving windows a request, at most
+# profiled serving windows a request, at most: deepseek's and seamless's
+# windows lose 1-10 of their records about one time in five, with or
+# without the backward checks before them
+PROFILE_TRIES = 5
 SERVE_PATHS = ("serve", "serve_gemma", "serve_xlstm", "serve_wide",
                "frontends")                # the model paths
 FRONTENDS = "frontends"     # the model path driven without the engine
 FRONTEND_REQUESTS = 2       # its requests of each app
-ALL_PATHS = PATHS + SERVE_PATHS
+ALL_PATHS = PATHS + SERVE_PATHS + ("train",)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32X3_OPS_PER_S = 495e12 / 3  # f32 products as 3xTF32 on the tensor cores
@@ -2124,17 +2164,34 @@ def model_bound(name: str, args, kw) -> tuple[float, str, int, int]:
     return by_bytes, "bytes", moved, ops
 
 
-def library_call(name: str, kw):
-    """One PyTorch call computing the same function, or None."""
+def sdpa(q, k, v, causal: bool):
+    """``scaled_dot_product_attention`` on the (1, BH, S, hd) views of
+    (BH, S, hd) inputs, its fused kernel pinned: FlashAttention-2 for
+    bf16, the memory-efficient kernel for f32 (flash takes no f32).  The
+    fused kernels take 4-D inputs only, and a 3-D call runs the math
+    fallback that builds the S x S matrix; pinned, a shape the fused
+    kernel refuses raises instead of timing that fallback."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    backend = SDPBackend.FLASH_ATTENTION if q.dtype == torch.bfloat16 \
+        else SDPBackend.EFFICIENT_ATTENTION
+    with sdpa_kernel(backend):
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=causal)[0]
+
+
+def library_call(name: str, args, kw):
+    """One PyTorch call computing the same function, or None (a window
+    or a softcap; causal with Sq != Sk, where SDPA's mask is aligned its
+    own way)."""
     if name == "grouped_matmul":
         # the MoE buffers' padding rows are zero, so bmm agrees there
         return lambda lhs, rhs, sizes: torch.bmm(lhs, rhs)
-    if not kw.get("window") and not kw.get("softcap"):
-        import torch.nn.functional as F
-        causal = kw.get("causal", True)
-        return lambda q, k, v, **_: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal)
-    return None
+    causal = kw.get("causal", True)
+    if kw.get("window") or kw.get("softcap") \
+            or (causal and args[0].shape[1] != args[1].shape[1]):
+        return None
+    return lambda q, k, v, **_: sdpa(q, k, v, causal)
 
 
 # ---------------------------------------------------------------------------
@@ -2373,16 +2430,48 @@ def serve_requests(path: str, n: int, seed: int = 0):
 
 
 @contextlib.contextmanager
+def kernel_capture(targets):
+    """Within the block, the inputs of the first call of each input shape
+    (and keywords) of each wrapper ``getattr(mod, name)`` of ``targets``
+    (``(mod, name)`` pairs), in ``{name: [(call, args, kwargs), ...]}``
+    with the call's number among that wrapper's calls.  The inputs are
+    held detached, not copied: the port writes none of them after the
+    call."""
+    captured = {name: [] for _, name in targets}
+    kernels = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def capture(name, fn):
+        seen, count = set(), [0]
+
+        def wrapped(*args, **kw):
+            count[0] += 1
+            key = tuple(tuple(a.shape) for a in args
+                        if isinstance(a, torch.Tensor)) \
+                + tuple(sorted(kw.items()))
+            if key not in seen:
+                seen.add(key)
+                captured[name].append((count[0], tuple(
+                    a.detach() if isinstance(a, torch.Tensor) else a
+                    for a in args), dict(kw)))
+            return fn(*args, **kw)
+        return wrapped
+
+    for mod, name, fn in kernels:
+        setattr(mod, name, capture(name, fn))
+    try:
+        yield captured
+    finally:
+        for mod, name, fn in kernels:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
 def serve_hooks(M, mods):
     """Within the block: the synchronised host time of every ``prefill``
-    and ``decode_step`` by model name, and the inputs of the first call
-    of each input shape of the two model kernels, in
-    ``{name: [(call, args, kwargs), ...]}``.  The inputs are held, not
-    copied: the port writes none of them after the call."""
+    and ``decode_step`` by model name, and the model kernels' captured
+    inputs (``kernel_capture``)."""
     times: dict = {}
-    captured = {name: [] for name in MODEL_KERNELS}
     orig = {"prefill": M.prefill, "decode_step": M.decode_step}
-    kernels = {name: getattr(mods[name], name) for name in MODEL_KERNELS}
 
     def timed(kind, fn, cfg_at):
         def wrapped(*args, **kw):
@@ -2396,30 +2485,14 @@ def serve_hooks(M, mods):
             return out
         return wrapped
 
-    def capture(name, fn):
-        seen, count = set(), [0]
-
-        def wrapped(*args, **kw):
-            count[0] += 1
-            key = tuple(tuple(a.shape) for a in args
-                        if isinstance(a, torch.Tensor)) \
-                + tuple(sorted(kw.items()))
-            if key not in seen:
-                seen.add(key)
-                captured[name].append((count[0], args, dict(kw)))
-            return fn(*args, **kw)
-        return wrapped
-
     M.prefill = timed("prefill", orig["prefill"], 2)
     M.decode_step = timed("decode_step", orig["decode_step"], 3)
-    for name, fn in kernels.items():
-        setattr(mods[name], name, capture(name, fn))
     try:
-        yield times, captured
+        with kernel_capture([(mods[name], name)
+                             for name in MODEL_KERNELS]) as captured:
+            yield times, captured
     finally:
         M.prefill, M.decode_step = orig["prefill"], orig["decode_step"]
-        for name, fn in kernels.items():
-            setattr(mods[name], name, fn)
 
 
 def run_serve(mods, dev, path: str, tiny: bool, n_requests: int = 8):
@@ -2689,7 +2762,7 @@ def model_timings(mods, launches, captured, errs, in_run) -> list:
             for call, args, kw in captured[path][name]:
                 saved = dict(mod.launches)
                 sets = cold_sets(args)
-                lib = library_call(name, kw)
+                lib = library_call(name, args, kw)
                 res = {"path": path, "call": call,
                        "shape": [list(a.shape) for a in args], "kw": kw,
                        "stream_ms": time_ms(kernel, sets, kw),
@@ -2739,6 +2812,471 @@ def model_timings(mods, launches, captured, errs, in_run) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the train path
+# ---------------------------------------------------------------------------
+TRAIN = "train"
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_SHAPE = "train_4k"      # its sequence length; its batch cut to 8
+TRAIN_BATCH, TRAIN_MICRO = 8, 4
+TRAIN_STEPS, TRAIN_WARMUP = 4, 2
+TRAIN_TINY = (64, 8)          # sequence, batch of --train-tiny
+BWD = "flash_attention_bwd"
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+# no Pallas backward: the JAX package trains through the XLA
+# flash_chunked and takes its gradient with jax.vjp
+BWD_REPLACES = "src/repro/models/attention.py:117"
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def bwd_cases(dev):
+    """(label, q, k, v, do, kw) cases of the backward kernels: the train
+    path's causal 24 x 4096 x 128 (B = 2 x 12 heads) in bf16 and f32,
+    causal with window 1024 and softcap 50 at hd 256, the same with
+    softcap 5 and q scaled by 4 (logits of std 4 far into tanh's curve,
+    where a kernel without the 1 - tanh^2 factor misses both tolerances
+    by some 100x; at softcap 50 and std 1 it would pass in bf16),
+    non-causal with Sq = Sk and Sq < Sk, head widths 64 and 96, S = 1000
+    (not a tile multiple), rows with no visible key, and rows that are no
+    16-byte multiple (the kernels' one-value loads)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    cases = []
+    for dtype, bh, sq, sk, hd, kw, what, scale in (
+            (torch.bfloat16, 24, 4096, 4096, 128, {"causal": True},
+             "train path's causal shape", 1.0),
+            (torch.float32, 24, 4096, 4096, 128, {"causal": True},
+             "train path's causal shape", 1.0),
+            (torch.float32, 8, 2048, 2048, 256,
+             {"causal": True, "window": 1024, "softcap": 50.0},
+             "window 1024, softcap 50, hd 256", 1.0),
+            (torch.bfloat16, 8, 2048, 2048, 256,
+             {"causal": True, "window": 1024, "softcap": 50.0},
+             "window 1024, softcap 50, hd 256", 1.0),
+            (torch.float32, 8, 2048, 2048, 256,
+             {"causal": True, "window": 1024, "softcap": 5.0},
+             "window 1024, softcap 5 on logits of std 4, hd 256", 4.0),
+            (torch.bfloat16, 8, 2048, 2048, 256,
+             {"causal": True, "window": 1024, "softcap": 5.0},
+             "window 1024, softcap 5 on logits of std 4, hd 256", 4.0),
+            (torch.float32, 8, 1024, 1024, 64, {"causal": False},
+             "non-causal Sq = Sk, hd 64", 1.0),
+            (torch.float32, 8, 512, 1024, 64, {"causal": False},
+             "non-causal Sq < Sk, hd 64", 1.0),
+            (torch.float32, 8, 1024, 1024, 64, {"causal": True},
+             "causal hd 64", 1.0),
+            (torch.float32, 8, 1024, 1024, 96, {"causal": True},
+             "causal hd 96", 1.0),
+            (torch.bfloat16, 8, 1024, 1024, 96, {"causal": True},
+             "causal hd 96", 1.0),
+            (torch.float32, 4, 1000, 1000, 128, {"causal": True},
+             "S = 1000", 1.0),
+            (torch.float32, 4, 300, 300, 96, {"causal": False,
+                                              "window": 40},
+             "non-causal window 40, hd 96", 1.0),
+            (torch.float32, 2, 96, 32, 64, {"causal": True, "window": 16},
+             "rows with no visible key", 1.0),
+            (torch.float32, 2, 50, 70, 37, {"causal": True},
+             "hd 37: rows not 16-byte multiples", 1.0),
+            (torch.bfloat16, 2, 130, 130, 100, {"causal": True},
+             "hd 100: bf16 rows not 16-byte multiples", 1.0)):
+        dn = "f32" if dtype == torch.float32 else "bf16"
+        q, k, v, do = (torch.randn(s, generator=g).to(dev, dtype)
+                       for s in ((bh, sq, hd), (bh, sk, hd), (bh, sk, hd),
+                                 (bh, sq, hd)))
+        cases.append((f"{dn} {what} {bh}x{sq}x{sk}x{hd}", q * scale, k, v,
+                      do, kw))
+    return cases
+
+
+def kernel_forward(FA, q, k, v, kw):
+    """``flash_attention`` under grad on the card, the training route
+    (``FlashAttention``): -> (out, the kernel's o and lse as its backward
+    reads them)."""
+    with torch.enable_grad():
+        out = FA.flash_attention(*(x.detach().requires_grad_(True)
+                                   for x in (q, k, v)), **kw)
+    *_, o, lse = out.grad_fn.saved_tensors
+    return out, o.detach(), lse
+
+
+def check_bwd_call(FA, label, q, k, v, do, kw, o=None, lse=None) -> float:
+    """The forward of the training route bitwise the serving forward
+    (when no ``o`` is given; its ``o`` and ``lse`` are then used), the
+    backward launched twice with bitwise-equal results and within
+    ``BWD_TOL`` of the largest plain gradient of each of dq, dk, dv, the
+    plain twin fed the same ``o`` and ``lse``; returns the largest
+    absolute difference."""
+    if o is None:
+        _, o, lse = kernel_forward(FA, q, k, v, kw)
+        with torch.no_grad():
+            plain_fwd = FA.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(raw_bits(o), raw_bits(plain_fwd)):
+            raise AssertionError(f"flash_attention {label}: the output with "
+                                 "lse differs from the output without")
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    err = 0.0
+    for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(raw_bits(a), raw_bits(b)):
+            raise AssertionError(f"{BWD} {label}: two launches on the same "
+                                 f"inputs give different {name}")
+        if a.dtype != q.dtype or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{BWD} {label}: {name} is {a.dtype} or "
+                                 "not finite")
+        e = float((a.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        if not e <= BWD_TOL[q.dtype] * top:
+            raise AssertionError(f"{BWD} {label}: {name} max abs err {e:.3g}"
+                                 f" > {BWD_TOL[q.dtype]} x {top:.3g}")
+        err = max(err, e)
+    return err
+
+
+def check_flash_backward(FA, GMM, dev) -> float:
+    """Phase 3 for the training kernels: every ``bwd_cases`` case, and
+    the autograd route: a flash call under grad on the card has a
+    ``grad_fn`` whose backward launches the kernels, and the grouped
+    matmul refuses grad there (it has no backward yet)."""
+    err = 0.0
+    for label, q, k, v, do, kw in bwd_cases(dev):
+        e = check_bwd_call(FA, label, q, k, v, do, kw)
+        err = max(err, e)
+        log("3 kernels", f"{BWD} {label} {kw}: lse leaves the forward's "
+            f"output bitwise; dq, dk, dv within {BWD_TOL[q.dtype]} of the "
+            f"plain gradients' largest (max abs err {e:.3g}), bitwise "
+            "equal over two launches")
+    q, k, v = (torch.randn(2, 64, 32, device=dev, requires_grad=True)
+               for _ in range(3))
+    before = FA.launches[BWD]
+    out = FA.flash_attention(q, k, v)
+    if out.grad_fn is None:
+        raise AssertionError("flash_attention under grad on the card "
+                             "returned an output without grad_fn")
+    out.sum().backward()
+    if FA.launches[BWD] != before + 1 or any(
+            x.grad is None or not bool(x.grad.abs().sum() > 0)
+            for x in (q, k, v)):
+        raise AssertionError("flash_attention's backward on the card did "
+                             "not launch the kernels or gave no gradient")
+    lhs = torch.randn(2, 8, 16, device=dev, requires_grad=True)
+    sizes = torch.tensor([8, 3], dtype=torch.int32, device=dev)
+    try:
+        GMM.grouped_matmul(lhs, torch.randn(2, 16, 8, device=dev), sizes)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("grouped_matmul accepted grad on the card")
+    log("3 kernels", "flash_attention under grad on the card: output with "
+        "a grad_fn whose backward launched the backward kernels; "
+        "grouped_matmul under grad on the card raises (no backward yet)")
+    return err
+
+
+def noise_zero_leaves(params, master, gen) -> int:
+    """Seeded noise of scale ``ZERO_LEAF_NOISE`` on every all-zero leaf
+    of the f32 master (biases, norm offsets), copied to the compute
+    params: the ``live_params`` rule on a training state.  -> the number
+    of leaves noised."""
+    from repro_torch.optim.adamw import tree_leaves
+    n = 0
+    for p, m in zip(tree_leaves(params), tree_leaves(master)):
+        if not bool(m.any()):
+            m.copy_(ZERO_LEAF_NOISE * torch.randn(m.shape, generator=gen,
+                                                  device=m.device))
+            p.copy_(m.to(p.dtype))
+            n += 1
+    return n
+
+
+def train_implied(cfg, micro: int, steps: int) -> dict:
+    """Flash launches the shapes imply: one forward per attention layer
+    of each microbatch, twice under remat (the forward and its
+    recomputation in the backward), one backward; for the steps and for
+    the gradient check of one microbatch before them."""
+    n = sum(k not in ("rec", "mlstm", "slstm") for k in cfg.kinds())
+    return {"flash_attention": n * micro * steps * 2 + n * 2,
+            BWD: n * micro * steps + n}
+
+
+def run_train(FA, dev, tiny: bool):
+    """Drive the train path once: qwen2-1.5b as published (28 layers, d
+    1536, 12/2 heads, d_ff 8960, vocab 151936), bf16 compute with the f32
+    master, remat on, random weights from seed 0 (zero leaves noised),
+    the port's synthetic ``TokenStream`` at ``train_4k``'s 4096 tokens,
+    8 sequences a step in 4 microbatches of 2, ``AdamWConfig()`` with
+    warmup 2; first one ``loss_fn`` gradient of one microbatch (every
+    leaf finite and nonzero), then 4 steps of ``build_train_step``, then
+    one profiled step.  -> (launches, captured inputs, in-run device ms
+    per call)."""
+    from repro_torch.configs.base import SHAPES, get_arch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from torch.profiler import ProfilerActivity, profile
+    phase = f"4 {TRAIN}"
+    cfg = get_arch(TRAIN_ARCH)
+    seq, batch = SHAPES[TRAIN_SHAPE].seq_len, TRAIN_BATCH
+    if tiny:
+        cfg = cfg.tiny()
+        seq, batch = TRAIN_TINY
+    mopts = M.ModelOptions(dtype=torch.bfloat16, remat=True)
+    t0 = time.perf_counter()
+    params, opt = T.init_train_state(cfg, mopts, dev, seed=0)
+    noised = noise_zero_leaves(params, opt.master,
+                               torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+    log(phase, f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}: {n_params(params) / 1e9:.3f} B parameters "
+        f"in bf16 with an f32 master and moments, {noised} zero leaves "
+        f"noised; drawn in {time.perf_counter() - t0:.2f} s")
+    log(phase, f"sequence {seq} ({TRAIN_SHAPE}'s), {batch} sequences a "
+        f"step in {TRAIN_MICRO} microbatches of {batch // TRAIN_MICRO} "
+        f"(cut from {TRAIN_SHAPE}'s {SHAPES[TRAIN_SHAPE].global_batch}), "
+        f"{TRAIN_STEPS} steps, warmup {TRAIN_WARMUP}, remat on")
+    stream = TokenStream(DataConfig(cfg.vocab_size, seq, batch, seed=0))
+    batches = [stream.batch_at(i) for i in range(TRAIN_STEPS + 1)]
+    FA.reset_launches()
+
+    # the gradient check, one microbatch
+    with kernel_capture([(FA, "flash_attention"), (FA, BWD)]) as captured:
+        tree = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        mb = T.batch_to({k: v[0::TRAIN_MICRO] for k, v in batches[0].items()},
+                        dev)
+        loss, _ = M.loss_fn(tree, mb, cfg, mopts)
+        grads = torch.autograd.grad(loss, tree_leaves(tree))
+        loss = loss.detach()
+    bad = [i for i, g in enumerate(grads)
+           if not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    if bad or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"gradient check: loss {float(loss)}, leaves "
+                             f"{bad} of {len(grads)} not finite or all 0")
+    check = dict(FA.launches)
+    want = train_implied(cfg, TRAIN_MICRO, 0)
+    log(phase, f"gradient check: loss {float(loss):.5f} on one microbatch; "
+        f"all {len(grads)} parameter leaves finite and nonzero; flash "
+        f"launches {json.dumps(check)}, implied {json.dumps(want)}")
+    if {k: check[k] for k in want} != want:
+        raise AssertionError(f"gradient check launches {check} != {want}")
+    del tree, grads, loss, mb
+
+    step = T.build_train_step(cfg, mopts, AdamWConfig(),
+                              T.TrainStepConfig(microbatches=TRAIN_MICRO,
+                                                compute_dtype=torch.bfloat16,
+                                                warmup_steps=TRAIN_WARMUP),
+                              dev)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt, mets = step(params, opt, batches[i])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        m = {k: float(v) for k, v in mets.items()}
+        losses.append(m["loss"])
+        log(phase, f"step {i}: loss {m['loss']:.5f}, ce {m['ce']:.5f}, "
+            f"lr_scale {m['lr_scale']:.3f}, grad_norm {m['grad_norm']:.5f}, "
+            f"update_skipped {int(m['update_skipped'])}; {dt:.3f} s "
+            f"(synchronised), {batch * seq / dt:.1f} tokens/s, peak device "
+            f"memory {peak:.2f} GiB; {gpu_line()}")
+        if not np.isfinite(m["loss"]) or int(m["update_skipped"]):
+            raise AssertionError(f"step {i}: loss {m['loss']}, update "
+                                 f"skipped {m['update_skipped']}")
+    launches = {k: FA.launches[k] for k in ("flash_attention", BWD)}
+    want = train_implied(cfg, TRAIN_MICRO, TRAIN_STEPS)
+    log(phase, f"kernel launches {json.dumps(launches)}, implied by the "
+        f"shapes {json.dumps(want)} (remat: the forward twice a "
+        "microbatch)")
+    if launches != want:
+        raise AssertionError(f"launches {launches} != implied {want}")
+
+    # one more step under the profiler: busy/idle share, top device ops
+    saved = dict(FA.launches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, mets = step(params, opt, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls = {k: FA.launches[k] - saved[k] for k in saved}
+    FA.launches.update(saved)
+    spans = device_activity(prof)
+    busy = busy_us(spans) / 1e6
+    log(f"{phase} profile", f"one step (step {TRAIN_STEPS}, loss "
+        f"{float(mets['loss']):.5f}): wall {wall:.3f} s, device busy "
+        f"{busy:.3f} s ({100 * busy / wall:.1f}%, idle "
+        f"{100 * (1 - busy / wall):.1f}%), {len(spans)} device activities; "
+        f"{gpu_line()}")
+    by_name: dict = {}
+    for name, s0, e in spans:
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + e - s0, cnt + 1)
+    for name, (tot, cnt) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:12]:
+        log(f"{phase} profile", f"{tot / 1e3:10.2f} ms {cnt:7d} x  "
+            f"{name[:90]}")
+    in_run = {}
+    for kname, marks in (("flash_attention", ("flash_attention_kernel",)),
+                         (BWD, ("flash_bwd_",))):
+        t = sum(tot for n, (tot, _) in by_name.items()
+                if any(mk in n for mk in marks))
+        if calls[kname]:
+            in_run[kname] = t / calls[kname] / 1e3
+            log(f"{phase} profile", f"in the main path: {calls[kname]} "
+                f"{kname} calls, {in_run[kname]:.4f} ms device time a call")
+    del params, opt, batches
+    return launches, captured, in_run
+
+
+def train_timings(FA, launches, captured, err, in_run) -> dict:
+    """The backward's kernels-JSON row: at the train path's captured
+    shape, device time (profiler) of the kernel, of its plain twin and of
+    autograd through ``sdpa`` (SDPA's fused kernel: FlashAttention-2's
+    backward in bf16, the memory-efficient one in f32; its backward
+    only, the forward run beforehand; for comparison, never in the
+    port), in bf16 as captured and again on f32 copies, beside the
+    operations bound."""
+    from repro_torch.kernels.flash_attention import visible_mask
+    (_, (q, k, v, o, lse, do), kw), = captured[BWD]
+    row = {"name": BWD, "route": "cuda", "source": BWD_SOURCE,
+           "replaces": BWD_REPLACES, "launches": launches[BWD],
+           "max_abs_err": err}
+    for dtype in (torch.bfloat16, torch.float32):
+        saved = dict(FA.launches)
+        args = [x.to(dtype) for x in (q, k, v)]
+        if dtype != q.dtype:
+            _, o32, lse32 = kernel_forward(FA, *args, kw)
+            args += [o32, lse32, do.to(dtype)]
+        else:
+            args += [o, lse, do]
+        sets = cold_sets(args)
+        ms = device_ms(FA.flash_attention_bwd, sets, kw)
+        stream_ms = time_ms(FA.flash_attention_bwd, sets, kw)
+        plain_ms = device_ms(FA.flash_attention_bwd_ref, sets, kw)
+        del sets
+        library_ms = None
+        if library_call("flash_attention", args, kw) is not None:
+            lib_sets = []
+            for _ in range(4):
+                qq, kk, vv = (x.clone().requires_grad_(True)
+                              for x in args[:3])
+                out = sdpa(qq, kk, vv, kw.get("causal", True))
+                lib_sets.append((out, qq, kk, vv, args[5].clone()))
+            library_ms = device_ms(
+                lambda out, qq, kk, vv, g: torch.autograd.grad(
+                    out, (qq, kk, vv), g, retain_graph=True), lib_sets, {})
+            del lib_sets
+        FA.launches.update(saved)
+        bh, sq, hd = args[0].shape
+        pairs = int(visible_mask(sq, args[1].shape[1],
+                                 causal=kw.get("causal", True),
+                                 window=kw.get("window", 0),
+                                 device=args[0].device).sum())
+        ops = 10 * bh * hd * pairs
+        moved = 8 * nbytes(args[0]) + nbytes(args[4])
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 \
+            else TF32X3_OPS_PER_S
+        by_ops, by_bytes = ops / rate * 1e3, moved / HBM_BYTES_PER_S * 1e3
+        bound = max(by_ops, by_bytes)
+        bound_by = "operations" if by_ops >= by_bytes else "bytes"
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        lib_s = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+        log("6 timings", f"{BWD} {dn} at the train path's "
+            f"{'x'.join(map(str, args[0].shape))} {kw}, inputs cold in L2: "
+            f"device time per call (profiler) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library (autograd through SDPA, its "
+            f"backward) {lib_s}; stream time kernel {stream_ms:.4f} ms; "
+            f"bound {bound:.4f} ms by {bound_by} ({moved} bytes, {ops} "
+            f"operations, {ops / ms / 1e9:.2f} TFLOP/s achieved); "
+            f"{gpu_line()}")
+        if ms <= 0.0 or plain_ms <= 0.0:
+            raise AssertionError(f"{BWD}: the profiler saw no device time")
+        if dtype == torch.bfloat16:
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=bound_by, library_ms=library_ms,
+                       stream_ms=stream_ms)
+        else:
+            row.update(ms_f32=ms, plain_ms_f32=plain_ms, bound_ms_f32=bound,
+                       library_ms_f32=library_ms, stream_ms_f32=stream_ms)
+    if BWD in in_run:
+        row["in_run_ms_train"] = in_run[BWD]
+    row["shape"] = [list(x.shape) for x in (q, k, v)]
+    row["kw"] = kw
+    return row
+
+
+def train_card_vs_cpu(dev) -> None:
+    """Tiny qwen2-1.5b in f32 with its zero leaves noised, one batch of 4
+    sequences of 64 tokens in one microbatch: the card's loss and every
+    gradient against the CPU port's (loss 1e-5 relative, each leaf 1e-4
+    of its largest magnitude), then ``adamw_update`` on the card fed the
+    CPU's gradients against the CPU's update at rtol 1e-6 (the master
+    and params with a floor of 1e-6 of the leaf's largest magnitude: an
+    entry that the update nearly cancels keeps only its rounding)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg = get_arch(TRAIN_ARCH).tiny()
+    opt = M.ModelOptions(dtype=torch.float32, remat=True)
+    cpu = torch.device("cpu")
+    cpu_params = model_params(cfg, cpu, 0)
+    batch = TokenStream(DataConfig(cfg.vocab_size, 64, 4, seed=0)).batch_at(0)
+    out = {}
+    for where, d in (("cpu", cpu), ("card", dev)):
+        tree = tree_map(lambda x: x.detach().to(d).requires_grad_(True),
+                        cpu_params)
+        loss, _ = M.loss_fn(tree, T.batch_to(batch, d), cfg, opt)
+        grads = torch.autograd.grad(loss, tree_leaves(tree))
+        out[where] = (float(loss.detach()), [g.cpu() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out["card"]
+    if not abs(lg - lc) <= 1e-5 * abs(lc):
+        raise AssertionError(f"tiny train: card loss {lg} != CPU loss {lc}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        e, top = float((a - b).abs().max()), float(b.abs().max())
+        if not (e <= 1e-4 * top and top > 0):
+            raise AssertionError(f"tiny train: gradient leaf {i} max abs err "
+                                 f"{e:.3g} > 1e-4 x {top:.3g}")
+        worst = max(worst, e / top)
+    it = iter(gc)
+    grads_tree = tree_map(lambda _: next(it), cpu_params)
+    res = {}
+    for where, d in (("cpu", cpu), ("card", dev)):
+        p = tree_to(cpu_params, d)
+        res[where] = adamw_update(tree_to(grads_tree, d), adamw_init(p),
+                                  AdamWConfig(), 1.0,
+                                  compute_dtype=torch.float32)
+    (pc, oc, mc), (pg, og, mg) = res["cpu"], res["card"]
+    for name, tg, tc, floor in (("params", pg, pc, 1e-6),
+                                ("master", og.master, oc.master, 1e-6),
+                                ("m", og.m, oc.m, 0.0),
+                                ("v", og.v, oc.v, 0.0)):
+        for a, b in zip(tree_leaves(tg), tree_leaves(tc)):
+            a = a.cpu()
+            if not torch.allclose(a, b, rtol=1e-6,
+                                  atol=floor * float(b.abs().max())):
+                raise AssertionError(f"tiny train: adamw_update's {name} on "
+                                     "the card differs from the CPU's")
+    if int(og.step) != int(oc.step) or int(mg["update_skipped"]):
+        raise AssertionError("tiny train: adamw_update's step differs")
+    log("5 card=cpu", f"{TRAIN}: tiny {cfg.name} f32, 4 x 64 tokens, remat: "
+        f"loss {lg:.7f} on the card, {lc:.7f} on the CPU; all {len(gg)} "
+        f"gradient leaves within 1e-4 of their largest (worst "
+        f"{worst:.3g}); adamw_update on the card fed the CPU's gradients "
+        f"equal to the CPU's at rtol 1e-6 (grad_norm "
+        f"{float(mg['grad_norm']):.6f} / {float(mc['grad_norm']):.6f})")
+
+
 def card_vs_cpu_phase(X, E, K, P, dev, sweeps, paths) -> None:
     """Phase 5: every card-vs-CPU comparison of the paths driven."""
     for path in sweeps:
@@ -2759,6 +3297,8 @@ def card_vs_cpu_phase(X, E, K, P, dev, sweeps, paths) -> None:
     for path in SERVE_PATHS:
         if path in paths:
             serve_card_vs_cpu(dev, path)
+    if TRAIN in paths:
+        train_card_vs_cpu(dev)
 
 
 def main() -> int:
@@ -2783,7 +3323,9 @@ def main() -> int:
                     help="replicas of the learned path")
     ap.add_argument("--es-generations", type=int, default=ES_GENERATIONS,
                     help="ES generations of the es path")
-    ap.add_argument("--tasks", type=int, default=1024)
+    ap.add_argument("--tasks", type=int, default=512,
+                    help="tasks a replica of the sweep paths (the stream "
+                    "path takes STREAM_TASKS)")
     ap.add_argument("--machines", type=int, default=32)
     ap.add_argument("--paths", default=",".join(ALL_PATHS),
                     help="comma-separated main paths to drive (a short "
@@ -2791,6 +3333,9 @@ def main() -> int:
     ap.add_argument("--serve-tiny", action="store_true",
                     help="serve the apps' tiny configurations (prompt 40, "
                     "6 tokens) instead of the full-width ones")
+    ap.add_argument("--train-tiny", action="store_true",
+                    help="train tiny qwen2-1.5b (8 sequences of 64 "
+                    "tokens) instead of the full-width model")
     a = ap.parse_args()
     paths = [p for p in a.paths.split(",") if p]
     if not set(paths) <= set(ALL_PATHS):
@@ -2853,6 +3398,8 @@ def run_phases(a, paths, sweeps, width, tasks, mods, dev, name,
     errs = check_kernels(K, KREF, dev)
     errs["fma"] = check_fma(FMA, KREF, dev)
     errs.update(check_model_kernels(mods, dev))
+    errs[BWD] = check_flash_backward(mods["flash_attention"],
+                                     mods["grouped_matmul"], dev)
     launches, captured, peaks = {}, {}, {}
     flat_run = scenario_run = flat_cols = None
     for path in sweeps:
@@ -2911,6 +3458,38 @@ def run_phases(a, paths, sweeps, width, tasks, mods, dev, name,
         torch.cuda.empty_cache()
         log(f"4 {path}", f"the path's run, re-checks and profiled windows "
             f"took {time.perf_counter() - t0:.1f} s")
+    train_row = None
+    if TRAIN in paths:
+        FA = mods["flash_attention"]
+        t0 = time.perf_counter()
+        t_launches, t_captured, t_in_run = run_train(FA, dev, a.train_tiny)
+        (_, (q, k, v), kw), = t_captured["flash_attention"]
+        shape = "x".join(map(str, q.shape))
+        err = check_model_call(mods, "flash_attention", (q, k, v), kw,
+                               f"{TRAIN} call 1 ({shape})")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        log("3 kernels", f"flash_attention captured at the {TRAIN} path's "
+            f"first call ({shape} {kw}): within tolerance, max abs err "
+            f"{err:.3g}")
+        (_, (bq, bk, bv, bo, blse, bdo), bkw), = t_captured[BWD]
+        err = check_bwd_call(FA, f"{TRAIN} call 1 ({shape})", bq, bk, bv,
+                             bdo, bkw, o=bo, lse=blse)
+        errs[BWD] = max(errs[BWD], err)
+        log("3 kernels", f"{BWD} captured at the {TRAIN} path's first call "
+            f"({shape} {bkw}): within tolerance, max abs err {err:.3g}, "
+            "bitwise equal over two launches")
+        serve_launches[TRAIN] = {"flash_attention":
+                                 t_launches["flash_attention"],
+                                 "grouped_matmul": 0}
+        serve_captured[TRAIN] = {"flash_attention":
+                                 t_captured["flash_attention"],
+                                 "grouped_matmul": []}
+        if "flash_attention" in t_in_run:
+            in_run[TRAIN] = {"flash_attention": t_in_run["flash_attention"]}
+        train_row = (t_launches, t_captured, t_in_run)
+        torch.cuda.empty_cache()
+        log(f"4 {TRAIN}", f"the path's run, re-checks and profiled step "
+            f"took {time.perf_counter() - t0:.1f} s")
     for path in sweeps:
         if path == "es":
             continue
@@ -2930,6 +3509,9 @@ def run_phases(a, paths, sweeps, width, tasks, mods, dev, name,
     if serve_launches:
         rows += model_timings(mods, serve_launches, serve_captured, errs,
                               in_run)
+    if train_row is not None:
+        rows.append(train_timings(mods["flash_attention"], train_row[0],
+                                  train_row[1], errs[BWD], train_row[2]))
     card_vs_cpu_phase(X, E, K, P, dev, sweeps, paths)
     log("done", f"{time.perf_counter() - t_all:.1f} s")
     print(gpu_line(), flush=True)

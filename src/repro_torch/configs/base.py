@@ -5,8 +5,9 @@ name through ``get_arch``.  ``tiny()`` derives a reduced configuration of
 the same family for CPU tests.  The dataclasses are the reference's field
 for field, so a configuration reads the same in both packages; the
 registry loads all ten configurations of the reference, in its order.
-The shape cells and ``cell_is_runnable`` belong to the dry-run and wait
-with it.
+``ShapeConfig`` and ``SHAPES`` are the reference's shape cells (the
+training step reads ``train_4k``); ``cell_is_runnable`` belongs to the
+dry-run and waits with it.
 """
 from __future__ import annotations
 
@@ -129,6 +130,22 @@ class ArchConfig:
                 capacity_factor=8.0)
         changes.update(overrides)
         return dataclasses.replace(self, name=self.name + "-tiny", **changes)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 
 _REGISTRY: dict[str, ArchConfig] = {}

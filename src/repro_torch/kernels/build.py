@@ -11,9 +11,10 @@ Each source is its own library with its own flags:
 * ``fma`` (the learned policies' multiply-add, ``__fmaf_rn`` over
   broadcast float32 operands) rounds once by construction and is held bit
   for bit to its plain version;
-* ``flash_attention`` and ``grouped_matmul`` (the model kernels) are held
-  to a tolerance, so they let ``nvcc`` contract multiply-adds into FMAs,
-  which is both faster and one rounding closer to the exact product.
+* ``flash_attention``, ``flash_attention_bwd`` (its backward) and
+  ``grouped_matmul`` (the model kernels) are held to a tolerance, so they
+  let ``nvcc`` contract multiply-adds into FMAs, which is both faster and
+  one rounding closer to the exact product.
 
 A library goes to ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), named by a hash of its source, the shared headers
@@ -87,14 +88,24 @@ LIBRARIES = {
     "flash_attention": {
         "flags": COMMON_FLAGS,
         "signatures": {
-            # q, k, v, o, scratch, bh, sq, sk, hd, causal, window, scale,
-            # softcap, bf16, stream
-            "e2c_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _F, _F, _I, _P),
+            # q, k, v, o, scratch, lse (or null), bh, sq, sk, hd, causal,
+            # window, scale, softcap, bf16, stream
+            "e2c_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _F, _F, _I, _P),
             # bh, sq, sk, hd -> floats of scratch (long long)
             "e2c_flash_attention_scratch": (_I, _I, _I, _I),
         },
         "restypes": {"e2c_flash_attention_scratch": ctypes.c_longlong},
+    },
+    "flash_attention_bwd": {
+        "flags": COMMON_FLAGS,
+        "signatures": {
+            # q, k, v, o, dout, lse, delta scratch, dq, dk, dv, bh, sq, sk,
+            # hd, causal, window, scale, softcap, bf16, stream
+            "e2c_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                                        _I, _P),
+        },
     },
     "grouped_matmul": {
         "flags": COMMON_FLAGS,

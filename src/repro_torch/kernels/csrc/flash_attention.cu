@@ -44,7 +44,11 @@
 // groups).  The q-tile index is reversed so that causal tiles with the
 // most keys start first.  Masked logits are -1e30 and their p exactly 0;
 // a row that saw no visible key has l == 0 and outputs 0.  expf and
-// tanhf, not the fast intrinsics.
+// tanhf, not the fast intrinsics.  Given an lse buffer (training), the
+// epilogue also writes each row's m + log(l) in f32 (0 for a row with no
+// visible key), which the backward (flash_attention_bwd.cu) reads; with
+// a null pointer (serving) it writes nothing more and the output's
+// arithmetic is the same.
 //
 // Decode (Sq <= kDecodeMaxSq; a cross-attention step has Sq = 1) takes
 // another route.  The tiled kernel gives one CTA to a (bh, 64-row query
@@ -115,9 +119,9 @@ template <typename T> __device__ __forceinline__ T zero() {
 template <typename T, int HD, int BK, int KS>
 __global__ void __launch_bounds__(32 * kRowWarps * KS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq,
-                       int sk, int hd, int causal, int window, float scale,
-                       float softcap) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int sq, int sk, int hd,
+                       int causal, int window, float scale, float softcap) {
   using L = Layout<T, HD, BK, KS>;
   using QElem = typename L::QElem;
   constexpr int kThreads = 32 * kRowWarps * KS;
@@ -470,6 +474,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ob[size_t(qp) * hd + d] =
             from_f32<T>(l > 0.f ? acc[n][e] / fmaxf(l, 1e-20f) : 0.f);
     }
+  if (lse != nullptr && t == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qp = wq0 + g + 8 * i;
+      if (qp < sq)
+        lse[bh * sq + qp] =
+            l_run[i] > 0.f ? m_run[i] + logf(l_run[i]) : 0.f;
+    }
 }
 
 constexpr int kDecodeMaxSq = 4;      // query rows that take the decode route
@@ -667,9 +679,9 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T, int HD, int BK, int KS>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, int hd, int causal, int window, float scale,
-           float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int sq, int sk, int hd, int causal, int window,
+           float scale, float softcap, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, HD, BK, KS>;
   constexpr size_t smem = Layout<T, HD, BK, KS>::bytes;
   static bool configured = false;
@@ -686,7 +698,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   dim3 grid(bh, (sq + BQ - 1) / BQ);
   kernel<<<grid, 32 * kRowWarps * KS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, hd, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, hd, causal,
       window, scale, softcap);
   return int(cudaGetLastError());
 }
@@ -697,10 +709,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 // KB, bf16 99 KB).
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             float* scratch, int bh, int sq, int sk, int hd, int causal,
-             int window, float scale, float softcap, cudaStream_t stream) {
+             float* scratch, float* lse, int bh, int sq, int sk, int hd,
+             int causal, int window, float scale, float softcap,
+             cudaStream_t stream) {
   constexpr bool f32 = is_f32<T>();
   if (decode_scratch(bh, sq, sk, hd) > 0) {
+    // the split-key route is not a training shape: no lse there
+    if (lse != nullptr) return int(cudaErrorInvalidValue);
     if (hd <= 64)
       return launch_decode<T, 64>(q, k, v, o, scratch, bh, sq, sk, hd,
                                   causal, window, scale, softcap, stream);
@@ -713,17 +728,17 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     return int(cudaErrorInvalidValue);
   }
   if (hd <= 64)
-    return launch<T, 64, f32 ? 16 : 32, 4>(q, k, v, o, bh, sq, sk, hd,
-                                           causal, window, scale, softcap,
-                                           stream);
+    return launch<T, 64, f32 ? 16 : 32, 4>(q, k, v, o, lse, bh, sq, sk,
+                                           hd, causal, window, scale,
+                                           softcap, stream);
   if (hd <= 128)
-    return launch<T, 128, f32 ? 16 : 32, 4>(q, k, v, o, bh, sq, sk, hd,
-                                            causal, window, scale, softcap,
-                                            stream);
+    return launch<T, 128, f32 ? 16 : 32, 4>(q, k, v, o, lse, bh, sq, sk,
+                                            hd, causal, window, scale,
+                                            softcap, stream);
   if (hd <= 256)
-    return launch<T, 256, f32 ? 8 : 16, 2>(q, k, v, o, bh, sq, sk, hd,
-                                           causal, window, scale, softcap,
-                                           stream);
+    return launch<T, 256, f32 ? 8 : 16, 2>(q, k, v, o, lse, bh, sq, sk,
+                                           hd, causal, window, scale,
+                                           softcap, stream);
   return int(cudaErrorInvalidValue);
 }
 
@@ -741,16 +756,19 @@ long long e2c_flash_attention_scratch(int bh, int sq, int sk, int hd) {
   return decode_scratch(bh, sq, sk, hd);
 }
 
+// lse: null, or (bh, sq) f32 for each row's m + log(l) (the tiled route
+// only: a call of at most kDecodeMaxSq rows with lse is refused).
 int e2c_flash_attention(const void* q, const void* k, const void* v, void* o,
-                        void* scratch, int bh, int sq, int sk, int hd,
-                        int causal, int window, float scale, float softcap,
-                        int bf16, void* stream) {
+                        void* scratch, void* lse, int bh, int sq, int sk,
+                        int hd, int causal, int window, float scale,
+                        float softcap, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto ws = static_cast<float*>(scratch);
+  auto ls = static_cast<float*>(lse);
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, ws, bh, sq, sk, hd, causal,
-                                   window, scale, softcap, s);
-  return dispatch<float>(q, k, v, o, ws, bh, sq, sk, hd, causal, window,
+    return dispatch<__nv_bfloat16>(q, k, v, o, ws, ls, bh, sq, sk, hd,
+                                   causal, window, scale, softcap, s);
+  return dispatch<float>(q, k, v, o, ws, ls, bh, sq, sk, hd, causal, window,
                          scale, softcap, s);
 }
 

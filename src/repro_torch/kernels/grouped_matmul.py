@@ -11,8 +11,12 @@ between the tiled kernel and the split-D decode kernel, whose partial
 sums go to a scratch buffer allocated here.
 
 A tensor on the CPU goes to ``grouped_matmul_ref``, the masked einsum of
-``repro/kernels/ref.py::grouped_matmul_ref``; a CUDA tensor launches the
-kernel (building it on first use) or raises — there is no fallback.
+``repro/kernels/ref.py::grouped_matmul_ref``, whose autograd is the
+plain backward; a CUDA tensor launches the kernel (building it on first
+use) or raises — there is no fallback.  The kernel has no backward yet:
+on a CUDA tensor with grad enabled and an operand that requires grad the
+wrapper raises rather than return an output without a gradient (MoE
+training on the card waits for that kernel, ROADMAP queue A, item 11.5).
 ``launches`` counts kernel launches only.
 """
 from __future__ import annotations
@@ -77,6 +81,11 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
     _check(lhs, rhs, group_sizes)
     if lhs.device.type == "cpu":
         return grouped_matmul_ref(lhs, rhs, group_sizes)
+    if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
+        raise NotImplementedError(
+            "grouped_matmul: the CUDA kernel has no backward yet, and its "
+            "output would carry no gradient (the MoE backward, ROADMAP "
+            "queue A, item 11.5); call it under torch.no_grad()")
     g, c, d = lhs.shape
     f = rhs.shape[2]
     if g > 65535 or c * max(d, f) >= 2**31 or d * f >= 2**31:

@@ -1,9 +1,11 @@
-"""Language-model assembly: embeddings, the block stack, prefill, decode.
+"""Language-model assembly: embeddings, the block stack, the loss,
+prefill, decode.
 
-The serving half of ``repro/models/model.py``:
+``repro/models/model.py`` on one device:
 
     init_lm(gen, cfg, dtype=)         -> parameter dict
     init_cache(cfg, batch, s_cache)   -> decode cache dict
+    loss_fn(params, batch, ...)       -> (loss, metrics)      [train fwd]
     prefill(params, inputs, ...)      -> (last_logits, cache)
     decode_step(params, cache, ...)   -> (logits, cache)
 
@@ -20,15 +22,20 @@ runs it non-causally over ``batch["frames"]`` (B, S_enc, d) and every
 decoder block cross-attends to its output, whose keys and values the
 prefill cache keeps (``ck``/``cv``) for decode.  A vision model
 (``cfg.frontend == "vision"``) takes ``batch["patch_embeds"]`` (B, P,
-d) in place of its first P token embeddings.  ``loss_fn`` and
-``chunked_ce_loss`` wait for the training slice (ROADMAP queue A, item
-11.5).
+d) in place of its first P token embeddings.  ``loss_fn`` is the
+training forward: with ``opt.remat`` each cycle of the stack is a
+``torch.utils.checkpoint`` region (non-reentrant), recomputed in the
+backward as the reference's ``jax.checkpoint`` of its scan body is, and
+``chunked_ce_loss`` checkpoints each sequence chunk of the unembedding
+and cross-entropy, so the (B, S, V) logits never exist at once.
+``input_specs`` belongs to the dry-run and waits with it.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -145,11 +152,26 @@ def apply_stack(stack_p, x, *, cfg: ArchConfig, opt: ModelOptions,
                        cache["prefix"][j] if cache else None)
         aux = aux + a
         new_cache["prefix"].append(nc)
-    for c in range(lay.n_cycles):
+
+    def cycle_body(c, x):
+        """Cycle c: -> (x, its aux, its caches)."""
+        aux_c = torch.zeros((), dtype=torch.float32, device=x.device)
+        ncs = []
         for j, kind in enumerate(lay.cycle):
             x, nc, a = run(kind, stack_p["cycle"][j][c], x,
                            cache["cycle"][j][c] if cache else None)
-            aux = aux + a
+            aux_c = aux_c + a
+            ncs.append(nc)
+        return x, aux_c, ncs
+
+    remat = opt.remat and mode == "train" and torch.is_grad_enabled()
+    for c in range(lay.n_cycles):
+        if remat:
+            x, a, ncs = checkpoint(cycle_body, c, x, use_reentrant=False)
+        else:
+            x, a, ncs = cycle_body(c, x)
+        aux = aux + a
+        for j, nc in enumerate(ncs):
             new_cache["cycle"][j].append(nc)
     for j, kind in enumerate(lay.suffix):
         x, nc, a = run(kind, stack_p["suffix"][j], x,
@@ -232,9 +254,65 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, opt: ModelOptions):
     return logits, new_cache
 
 
+# ---------------------------------------------------------------------------
+# Loss (sequence-chunked cross-entropy; logits never fully materialized)
+# ---------------------------------------------------------------------------
+def chunked_ce_loss(params, x, labels, cfg: ArchConfig, opt: ModelOptions,
+                    z_loss: float = 1e-4):
+    """x: (B, S, D) final hidden; labels (B, S) integer, -1 = masked.
+    -> (mean NLL + z_loss * mean lse^2 over the valid labels, their
+    int32 count).  S is padded to a multiple of the chunk with label -1;
+    each chunk's logits, log-sum-exp and gold logit are f32 and the
+    chunk is recomputed in the backward."""
+    B, S, D = x.shape
+    c = min(opt.loss_chunk, S)
+    pad = (-S) % c
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+
+    def chunk_loss(xc, lc):
+        logits = _logits(params, xc, cfg)               # (B, c, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            torch.clamp(lc, min=0)[..., None].long())[..., 0]
+        valid = lc >= 0
+        nll = torch.where(valid, lse - gold, 0.0)
+        zl = torch.where(valid, lse * lse, 0.0)
+        return torch.sum(nll), torch.sum(zl), \
+            torch.sum(valid, dtype=torch.int32)
+
+    remat = torch.is_grad_enabled()
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int32, device=x.device)
+    for s in range(0, S + pad, c):
+        xc, lc = x[:, s:s + c], labels[:, s:s + c]
+        if remat:
+            n, z, k = checkpoint(chunk_loss, xc, lc, use_reentrant=False)
+        else:
+            n, z, k = chunk_loss(xc, lc)
+        loss_sum, z_sum, count = loss_sum + n, z_sum + z, count + k
+    denom = torch.clamp(count, min=1)
+    return loss_sum / denom + z_loss * z_sum / denom, count
+
+
 def loss_fn(params, batch: dict, cfg: ArchConfig, opt: ModelOptions):
-    """The training loss; ``mode="train"`` runs the stack's forward pass
-    already, the loss and its chunked cross-entropy wait for their
-    slice."""
-    raise NotImplementedError("loss_fn is not ported to repro_torch yet "
-                              "(ROADMAP queue A, item 11.5: training)")
+    """Training forward.  batch: ``tokens``/``labels`` (B, S) (+
+    ``patch_embeds`` for a vision model, ``frames`` for an
+    encoder-decoder).  -> (loss, {ce, aux, tokens}): the chunked
+    cross-entropy plus the MoE router's ``aux_loss_weight * aux``."""
+    lay = layout(cfg)
+    memory = encode(params, batch["frames"], cfg, opt) if cfg.is_encdec \
+        else None
+    x = _embed_inputs(params, batch, cfg, opt)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x, _, aux = apply_stack(params["stack"], x, cfg=cfg, opt=opt,
+                            positions=positions, mode="train", lay=lay,
+                            memory=memory, with_cross=cfg.is_encdec)
+    x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    ce, count = chunked_ce_loss(params, x, batch["labels"], cfg, opt)
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
+    loss = ce + aux_w * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": count}

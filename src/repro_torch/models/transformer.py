@@ -37,8 +37,11 @@ call against the encoder's keys, the reference's ``flash_chunked`` with
 
 ``mode`` is ``"prefill"`` (builds the decode cache), ``"decode"`` or
 ``"train"``: the forward pass with no cache, the reference's name for
-it, which its ``prefill`` runs over an encoder; the loss and training
-wait for their slice (ROADMAP queue A, item 11.5).
+it, which its ``loss_fn`` runs and its ``prefill`` runs over an encoder.
+In ``"train"`` mode on the card the flash call is differentiable
+(``kernels/flash_attention.FlashAttention``: the kernel's forward with
+its row statistics, the backward kernels); the grouped matmul is not yet
+and raises under grad on the card.
 """
 from __future__ import annotations
 
@@ -57,12 +60,12 @@ from repro_torch.models import xlstm as XL
 
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
-    """Runtime (non-architecture) options.  The reference's ``remat`` and
-    ``loss_chunk`` are training options and wait for the training
-    slice."""
+    """Runtime (non-architecture) options, the reference's fields."""
     attn_impl: str = "chunked"       # chunked | pallas | hier | block
     kv_chunk: int = 1024
+    remat: bool = True               # recompute each cycle in the backward
     dtype: Any = torch.bfloat16
+    loss_chunk: int = 512            # CE loss sequence chunking
 
 
 ATTN_KINDS = ("global", "local", "moe", "dense_ffn")
